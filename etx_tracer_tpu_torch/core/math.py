@@ -9,6 +9,8 @@ same order.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 kPi = 3.14159265358979323846
@@ -19,6 +21,14 @@ kMaxFloat = 3.402823466e+38
 kMaxHalf = 65504.0
 kInvMaxHalf = 1.0 / kMaxHalf
 kRayEpsilon = 15.0 / (kMaxHalf - 1.0)
+kDeltaAlphaThreshold = 1.0e-4
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device) -> torch.Tensor:
+  """A small float32 constant on `device`, copied there once per process
+  (a copy from the host per call would wait for the card)."""
+  return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,6 +48,15 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
   bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
   return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+  return v - (2.0 * dot(v, n))[..., None] * n
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+  """Rec. 709 luminance."""
+  return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169
 
 
 def sqr(x):

@@ -9,9 +9,12 @@ trace launches: the closest-hit kernel (K1) for path rays and the any-hit
 kernel (K2) for last step's shadow rays; each phase ends with one more K2
 launch that drains the pending shadow rays.
 
-This slice renders diffuse RGB scenes lit by area emitters, without media,
-textures or a radiance clamp. RNG streams key off (pixel, iteration) only,
-so the port reproduces the JAX package's sample streams draw for draw.
+The port renders the Diffuse, Conductor, Dielectric and Thinfilm classes
+(`config.material_classes`) lit by area emitters, in RGB or spectral mode
+(one sampled wavelength per lane; a bounce evaluates the spectrum bank at
+each lane's wavelength once), without media, textures or a radiance clamp.
+RNG streams key off (pixel, iteration) only, so the port reproduces the JAX
+package's sample streams draw for draw.
 
 PyTorch runs eagerly, so the JAX `while_loop`s are Python loops; their
 conditions are read on the host once per 4 steps, as the JAX loop body runs
@@ -27,6 +30,7 @@ import torch
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.core import rng
+from etx_tracer_tpu_torch.core import spectrum as spmod
 from etx_tracer_tpu_torch.ops import trace as trace_ops
 from etx_tracer_tpu_torch.render import camera as camera_mod
 from etx_tracer_tpu_torch.render import emitters as emitters_mod
@@ -48,11 +52,13 @@ class PTState(NamedTuple):
   accumulated: torch.Tensor  # (R,C)
   view_normal: torch.Tensor  # (R,3)
   view_albedo: torch.Tensor  # (R,C)
+  medium: torch.Tensor       # (R,) int32, -1: vacuum
   path_length: torch.Tensor  # (R,) int32
   eta: torch.Tensor          # (R,)
   bsdf_pdf: torch.Tensor     # (R,)
   mis_flag: torch.Tensor     # (R,) bool
   rng_state: torch.Tensor    # (R,) int64 holding a uint32
+  wl: torch.Tensor           # (R,) wavelength (spectral mode), else 0
   alive: torch.Tensor        # (R,) bool
   sample_iter: torch.Tensor  # (R,) int64 sample iteration of this lane
   rays_traced: torch.Tensor  # () int64: path rays + shadow rays traced
@@ -77,7 +83,11 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) 
   pixel_index = sample_ids % npix
   iteration = sample_ids // npix
   state = rng.seed(pixel_index, iteration)
-  state, _ = rng.next_float(state)
+  state, wl_rnd = rng.next_float(state)
+  if config.spectral:
+    wl = spmod.sample_wavelength(wl_rnd)
+  else:
+    wl = torch.zeros(r, device=dev)
   px = pixel_index % w
   py = pixel_index // w
   state, jit_rnd = rng.next_2d(state)
@@ -85,7 +95,7 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) 
   uv = camera_mod.film_uv(px, py, w, h, jitter)
   state, _ = rng.next_2d(state)
   rays = camera_mod.generate_ray(scene.camera, uv)
-  c = spx.channels()
+  c = spx.channels(config.spectral)
 
   def zeros(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device=dev)
@@ -94,10 +104,11 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) 
       ray_o=rays.o, ray_d=rays.d, t_min=rays.t_min, t_max=rays.t_max,
       throughput=torch.ones((r, c), device=dev), accumulated=zeros(r, c),
       view_normal=zeros(r, 3), view_albedo=zeros(r, c),
+      medium=torch.full((r,), -1, dtype=torch.int32, device=dev),
       path_length=torch.ones(r, dtype=torch.int32, device=dev),
       eta=torch.ones(r, device=dev), bsdf_pdf=zeros(r),
       mis_flag=torch.ones(r, dtype=torch.bool, device=dev),
-      rng_state=state, alive=sample_ids < end_sample,
+      rng_state=state, wl=wl, alive=sample_ids < end_sample,
       sample_iter=iteration,
       rays_traced=zeros(dtype=torch.int64),
       psh_o=zeros(r, 3), psh_d=zeros(r, 3),
@@ -149,7 +160,12 @@ def pt_step(scene, config, state: PTState) -> PTState:
   new pending one and report the resolved contribution via res_rgb/res_valid."""
   r = state.ray_o.shape[0]
   dev = state.ray_o.device
-  classes = (st.MaterialClass.Diffuse,)
+  spectral = config.spectral
+  classes = config.material_classes
+  if spectral:
+    # every SPD at each lane's wavelength, once per bounce: the queries of
+    # this bounce at state.wl read it instead of the bank
+    scene = scene._replace(spec_at_wl=(state.wl, spmod.bank_at_wl(scene.spec_values, state.wl)))
 
   # dead lanes trace a degenerate interval
   t_max = torch.where(state.alive, state.t_max, 0.0)
@@ -169,12 +185,12 @@ def pt_step(scene, config, state: PTState) -> PTState:
   mat = packed.MaterialRows(scene.mat_table[trows.mat])
   emitter_idx = torch.where(found, trows.emitter, -1)
   sd = ShadingData(w_i=state.ray_d, nrm=nrm, tan=tan, btn=btn, geo_n=trows.geo_n,
-                   tex=uv, mat=mat)
+                   tex=uv, wl=state.wl, medium=state.medium, mat=mat)
 
   # --- direct emitter hit ---
   directly_visible = state.path_length == 1
   e_value, _, e_pdf_dir, _ = emitters_mod.area_radiance(
-      scene, emitter_idx, state.ray_o, pos, directly_visible)
+      scene, emitter_idx, state.ray_o, pos, directly_visible, state.wl, spectral)
   e_discrete = emitters_mod.discrete_pdf(scene, torch.clamp(emitter_idx, min=0))
   no_weight = directly_visible | ~state.mis_flag
   mis_w = torch.where(no_weight, 1.0,
@@ -184,22 +200,22 @@ def pt_step(scene, config, state: PTState) -> PTState:
       direct_ok[..., None], throughput * e_value * mis_w[..., None], 0.0)
 
   # --- first-hit AOVs ---
-  albedo_here = bsdf_dispatch.albedo(scene, sd)
+  albedo_here = bsdf_dispatch.albedo(scene, sd, spectral)
   first = (found & directly_visible)[..., None]
   view_normal = torch.where(first, nrm, state.view_normal)
   view_albedo = torch.where(first, albedo_here, state.view_albedo)
 
   # --- BSDF sample ---
   rng_state, rnd_bsdf = rng.next_n(rng_state, bsdf_dispatch.NUM_SAMPLE_RND)
-  bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, classes)
+  bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, spectral, classes)
 
   # --- NEE: this step's shadow ray becomes the pending one ---
   rng_state, rnd_sel = rng.next_float(rng_state)
   rng_state, rnd_em = rng.next_2d(rng_state)
   can_nee = found & (state.path_length + 1 <= config.max_path_length)
   em_idx, _ = emitters_mod.sample_emitter_index(scene, rnd_sel)
-  esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos)
-  bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, classes)
+  esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos, state.wl, spectral)
+  bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, spectral, classes)
   sh_o = _shading_pos(sd.geo_n, pos, esmp.direction)
   w_mis = torch.where(esmp.is_delta, 1.0,
                       em.power_heuristic(esmp.pdf_dir * esmp.pdf_sample, bsdf_pdf_at))
@@ -207,7 +223,7 @@ def pt_step(scene, config, state: PTState) -> PTState:
   dist = em.length(esmp.origin - sh_o)
   contrib = bsdf_val * esmp.value * (w_mis / torch.clamp(denom, min=1e-20))[..., None]
   nee_ok = can_nee & (denom > 0.0) & (bsdf_pdf_at > 0.0)
-  pend_rgb = spx.to_film_rgb(throughput * contrib)
+  pend_rgb = spx.to_film_rgb(throughput * contrib, state.wl, spectral)
   psh_tmax = torch.where(nee_ok, torch.clamp(dist * (1.0 - 1e-3), min=0.0), -1.0)
   psh_rgb = torch.where(nee_ok[..., None], pend_rgb, 0.0)
 
@@ -228,9 +244,9 @@ def pt_step(scene, config, state: PTState) -> PTState:
       t_min=torch.full((r,), em.kRayEpsilon, device=dev),
       t_max=torch.full((r,), em.kMaxFloat, device=dev),
       throughput=new_throughput, accumulated=accumulated,
-      view_normal=view_normal, view_albedo=view_albedo,
+      view_normal=view_normal, view_albedo=view_albedo, medium=bs.medium,
       path_length=new_len, eta=new_eta, bsdf_pdf=bs.pdf, mis_flag=~bs.is_delta,
-      rng_state=rng_state, alive=alive, sample_iter=state.sample_iter,
+      rng_state=rng_state, wl=state.wl, alive=alive, sample_iter=state.sample_iter,
       rays_traced=rays_traced,
       psh_o=sh_o, psh_d=esmp.direction, psh_tmax=psh_tmax, psh_rgb=psh_rgb,
       res_rgb=res_rgb, res_valid=res_valid)
@@ -356,8 +372,8 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
       dmask = died[..., None].to(torch.float32)
       even = (died & ((new_state.sample_iter % 2) == 0))[..., None].to(torch.float32)
-      color = spx.to_film_rgb(new_state.accumulated)
-      alb = spx.to_film_rgb(new_state.view_albedo)
+      color = spx.to_film_rgb(new_state.accumulated, new_state.wl, config.spectral)
+      alb = spx.to_film_rgb(new_state.view_albedo, new_state.wl, config.spectral)
       row = torch.cat([color * dmask, new_state.view_normal * dmask, alb * dmask,
                        color * even, dmask, even], dim=-1)
       slot = torch.clamp(counter // n_lane, 0, s_slots - 1)

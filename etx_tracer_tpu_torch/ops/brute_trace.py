@@ -135,14 +135,15 @@ def _library():
   return _lib
 
 
-def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask):
+def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, max_tris=MAX_TRIS,
+           what="brute-force"):
   """Validate what the kernels take; returns (num_t, num_r)."""
   dev = o.device
   if dev.type != "cuda":
-    raise ValueError(f"brute_trace kernels take CUDA tensors, got {dev}")
+    raise ValueError(f"the {what} kernels take CUDA tensors, got {dev}")
   num_t, num_r = tri_v0.shape[0], o.shape[0]
-  if num_t > MAX_TRIS:
-    raise ValueError(f"{num_t} triangles: the brute-force kernels take at most {MAX_TRIS}")
+  if num_t > max_tris:
+    raise ValueError(f"{num_t} triangles: the {what} kernels take at most {max_tris}")
   for name, x, shape in (("tri_v0", tri_v0, (num_t, 3)), ("tri_e1", tri_e1, (num_t, 3)),
                          ("tri_e2", tri_e2, (num_t, 3)), ("o", o, (num_r, 3)),
                          ("d", d, (num_r, 3)), ("t_min", t_min, (num_r,)),

@@ -1,10 +1,13 @@
-"""Vectorized BSDF lobes: the Diffuse class.
+"""Vectorized BSDF lobes: Diffuse, Conductor, Dielectric and Thinfilm.
 
-Counterpart of `etx_tracer_tpu/render/bsdf/lobes.py`'s Lambert diffuse lobe
-(`diffuse_sample`, `diffuse_evaluate`, `diffuse_pdf`). Conventions as there:
+Counterpart of the same lobes of `etx_tracer_tpu/render/bsdf/lobes.py`, with
+the JAX package's default multiple-scattering backend (`MS_BACKEND = "lut"`:
+the energy-compensation tables of `energy_lut.py`). Conventions as there:
 `w_i` points TOWARD the surface; the normal frame is flipped so the incident
-ray arrives from local +z; responses are (R, C) tensors. The other classes,
-the diffuse variations and textures are later slices.
+ray arrives from local +z (`entering` records the flip); responses are
+(R, C) tensors, C = 1 spectral, C = 3 RGB. Smooth conductors and
+dielectrics (roughness <= 1e-4) take exact delta forms. The other classes,
+the diffuse variations, textures and the Heitz walk are later slices.
 """
 
 from __future__ import annotations
@@ -14,18 +17,31 @@ from typing import NamedTuple
 import torch
 
 from etx_tracer_tpu_torch.core import math as em
+from etx_tracer_tpu_torch.core import rng
+from etx_tracer_tpu_torch.core import spectrum as spmod
 from etx_tracer_tpu_torch.render import spectral as spx
+from etx_tracer_tpu_torch.render.bsdf import common as mf
+from etx_tracer_tpu_torch.render.bsdf import energy_lut
+
+kDeltaAlpha = em.kDeltaAlphaThreshold
+
+# RGB mode evaluates a thin film at one wavelength per channel, jittered in
+# the channel's band
+_TF_RGB_BASE = (610.0, 537.0, 450.0)
+_TF_RGB_SPAN = (45.0, 47.0, 23.5)
 
 
 class ShadingData(NamedTuple):
   """Per-ray shading inputs."""
-  w_i: torch.Tensor    # (R,3) incident direction, toward the surface
-  nrm: torch.Tensor    # (R,3) shading normal (unflipped)
-  tan: torch.Tensor    # (R,3)
-  btn: torch.Tensor    # (R,3)
-  geo_n: torch.Tensor  # (R,3)
-  tex: torch.Tensor    # (R,2)
-  mat: object          # packed.MaterialRows gathered per ray
+  w_i: torch.Tensor     # (R,3) incident direction, toward the surface
+  nrm: torch.Tensor     # (R,3) shading normal (unflipped)
+  tan: torch.Tensor     # (R,3)
+  btn: torch.Tensor     # (R,3)
+  geo_n: torch.Tensor   # (R,3)
+  tex: torch.Tensor     # (R,2)
+  wl: torch.Tensor      # (R,) wavelength (spectral mode)
+  medium: torch.Tensor  # (R,) int32 current medium
+  mat: object           # packed.MaterialRows gathered per ray
 
 
 class BSDFSampleR(NamedTuple):
@@ -36,6 +52,7 @@ class BSDFSampleR(NamedTuple):
   is_delta: torch.Tensor   # (R,) bool
   is_diffuse: torch.Tensor  # (R,) bool
   is_reflection: torch.Tensor  # (R,) bool
+  medium: torch.Tensor     # (R,) int32 medium after the event
 
 
 def entering(sd: ShadingData) -> torch.Tensor:
@@ -49,37 +66,375 @@ def normal_frame(sd: ShadingData):
   return (sd.tan * s, sd.btn * s, sd.nrm * s), ent
 
 
-def _scattering(scene, sd: ShadingData) -> torch.Tensor:
-  return spx.query_spd(scene, sd.mat.scattering_spec)
+def _flags(r: int, dev, delta, diffuse, reflection):
+  """(is_delta, is_diffuse, is_reflection): a bool or an (R,) tensor each."""
+  def full(x):
+    return x if isinstance(x, torch.Tensor) else torch.full((r,), x, dtype=torch.bool,
+                                                               device=dev)
+  return full(delta), full(diffuse), full(reflection)
 
 
-def diffuse_sample(scene, sd: ShadingData, rnd: torch.Tensor) -> BSDFSampleR:
+def _scattering(scene, sd: ShadingData, spectral: bool) -> torch.Tensor:
+  return spx.query_spd(scene, sd.mat.scattering_spec, sd.wl, spectral)
+
+
+def _reflectance(scene, sd: ShadingData, spectral: bool) -> torch.Tensor:
+  return spx.query_spd(scene, sd.mat.reflectance_spec, sd.wl, spectral)
+
+
+def _ior(scene, sd, eta_idx, k_idx, spectral):
+  eta = spx.query_spd(scene, eta_idx, sd.wl, spectral)
+  eta = torch.where((eta_idx >= 0)[..., None], eta, 1.0)
+  k = spx.query_spd(scene, k_idx, sd.wl, spectral)
+  return eta, k
+
+
+def _fresnel_at(scene, sd, cos_theta, spectral, swap=None):
+  """The material's Fresnel term at cos_theta: complex ext/int IORs, the
+  conductor's RGB conversion, and thin-film interference where the
+  material has a film. swap: optional (R,) bool, swap the int and ext IORs
+  (exiting a dielectric)."""
+  ext_eta, ext_k = _ior(scene, sd, sd.mat.ext_ior_eta, sd.mat.ext_ior_k, spectral)
+  int_eta, int_k = _ior(scene, sd, sd.mat.int_ior_eta, sd.mat.int_ior_k, spectral)
+  if swap is not None:
+    sw = swap[..., None]
+    ext_eta, int_eta = torch.where(sw, int_eta, ext_eta), torch.where(sw, ext_eta, int_eta)
+    ext_k, int_k = torch.where(sw, int_k, ext_k), torch.where(sw, ext_k, int_k)
+  is_cond = sd.mat.int_ior_cls == spmod.SpectralDistribution.CLASS_CONDUCTOR
+  tf_eta, tf_k = _ior(scene, sd, sd.mat.thinfilm_eta, sd.mat.thinfilm_k, spectral)
+  tf_thick = 0.5 * (sd.mat.thinfilm_min + sd.mat.thinfilm_max)
+  tf_active = (sd.mat.thinfilm_min * sd.mat.thinfilm_max) > 0.0
+  tf_thick = torch.where(tf_active, tf_thick, 0.0)
+  if spectral:
+    tf_wl = sd.wl[..., None]
+  else:
+    # one wavelength per channel, jittered inside the channel's band by a
+    # draw seeded from the ray's bits (fixed per lane, new per sample)
+    ba = (sd.w_i[..., 0] + sd.tex[..., 0]).contiguous().view(torch.int32)
+    bb = (sd.w_i[..., 1] + sd.tex[..., 1]).contiguous().view(torch.int32)
+    _, j3 = rng.next_n(rng.seed(ba, bb), 3)
+    tf_wl = (em.constant(_TF_RGB_BASE, j3.device)
+             + em.constant(_TF_RGB_SPAN, j3.device) * (2.0 * j3 - 1.0))
+  return mf.fresnel(cos_theta, ext_eta, ext_k, int_eta, int_k, spectral,
+                    int_is_conductor=is_cond, tf_thickness=tf_thick,
+                    tf_eta=tf_eta, tf_k=tf_k, tf_wavelengths=tf_wl)
+
+
+def _eta_ratio(scene, sd, spectral):
+  """Monochromatic int/ext eta ratio (dielectric refraction)."""
+  ext_eta, _ = _ior(scene, sd, sd.mat.ext_ior_eta, sd.mat.ext_ior_k, spectral)
+  int_eta, _ = _ior(scene, sd, sd.mat.int_ior_eta, sd.mat.int_ior_k, spectral)
+  return (spx.monochromatic(int_eta, spectral)
+          / torch.clamp(spx.monochromatic(ext_eta, spectral), min=1e-6))
+
+
+def _roughness(sd) -> torch.Tensor:
+  return torch.stack([sd.mat.roughness[..., 0], sd.mat.roughness[..., 1]], dim=-1)
+
+
+def _is_delta_alpha(alpha) -> torch.Tensor:
+  return torch.maximum(alpha[..., 0], alpha[..., 1]) <= kDeltaAlpha
+
+
+def _local_w_i(frame, sd, min_z=1e-4):
+  """-w_i in the flipped frame with z held at or above min_z."""
+  w = em.to_local(*frame, -sd.w_i)
+  return torch.cat([w[..., :2], torch.clamp(w[..., 2:3], min=min_z)], dim=-1)
+
+
+def _up(like: torch.Tensor) -> torch.Tensor:
+  return em.constant((0.0, 0.0, 1.0), like.device).expand(like.shape)
+
+
+def _crossing_medium(sd, ent):
+  return torch.where(ent, sd.mat.int_medium, sd.mat.ext_medium)
+
+
+# ---------------------------------------------------------------------------
+# Diffuse (Lambert)
+# ---------------------------------------------------------------------------
+
+
+def diffuse_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
   """Cosine-weighted hemisphere sample of the Lambert lobe."""
-  (tan, btn, nrm), _ = normal_frame(sd)
+  frame, _ = normal_frame(sd)
   local_w_o = em.sample_cosine_distribution(rnd[..., 0:2], 1.0)
-  albedo = _scattering(scene, sd)
+  albedo = _scattering(scene, sd, spectral)
   pdf = em.kInvPi * local_w_o[..., 2]
-  w_o = em.from_local(tan, btn, nrm, local_w_o)
+  w_o = em.from_local(*frame, local_w_o)
   r = sd.w_i.shape[0]
   dev = sd.w_i.device
-  return BSDFSampleR(
-      w_o=w_o, weight=albedo, pdf=pdf, eta=torch.ones(r, device=dev),
-      is_delta=torch.zeros(r, dtype=torch.bool, device=dev),
-      is_diffuse=torch.ones(r, dtype=torch.bool, device=dev),
-      is_reflection=torch.ones(r, dtype=torch.bool, device=dev))
+  return BSDFSampleR(w_o, albedo, pdf, torch.ones(r, device=dev),
+                     *_flags(r, dev, False, True, True), sd.medium)
 
 
-def diffuse_evaluate(scene, sd: ShadingData, w_o: torch.Tensor):
+def diffuse_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
   """(bsdf * cos (R,C), pdf (R,)) of the Lambert lobe toward w_o."""
   (_, _, nrm), _ = normal_frame(sd)
   cos_o = em.dot(nrm, w_o)
-  albedo = _scattering(scene, sd)
+  albedo = _scattering(scene, sd, spectral)
   valid = cos_o > em.kEpsilon
   bsdf = albedo * em.kInvPi * torch.clamp(cos_o, min=0.0)[..., None]
   pdf = em.kInvPi * torch.clamp(cos_o, min=0.0)
   return torch.where(valid[..., None], bsdf, 0.0), torch.where(valid, pdf, 0.0)
 
 
-def diffuse_pdf(scene, sd: ShadingData, w_o: torch.Tensor) -> torch.Tensor:
+def diffuse_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
   (_, _, nrm), _ = normal_frame(sd)
   return torch.clamp(em.dot(nrm, w_o), min=0.0) * em.kInvPi
+
+
+# ---------------------------------------------------------------------------
+# Conductor: exact delta reflection when smooth, the energy-compensated LUT
+# lobe when rough
+# ---------------------------------------------------------------------------
+
+
+def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  frame, _ = normal_frame(sd)
+  alpha = _roughness(sd)
+  delta = _is_delta_alpha(alpha)
+  alpha_c = mf.clamp_alpha(alpha)
+  w_i_l = em.normalize(_local_w_i(frame, sd))
+
+  def fres(cos_t):
+    return _fresnel_at(scene, sd, cos_t, spectral)
+
+  w_o_ms, energy, pdf_rough = energy_lut.conductor_sample_lut(fres, w_i_l, alpha_c, rnd)
+  refl = _reflectance(scene, sd, spectral)
+
+  # delta lanes: mirror reflection with the Fresnel term at the incident cosine
+  w_o_delta = em.reflect(-w_i_l, _up(w_i_l))
+  f_delta = fres(w_i_l[..., 2])
+
+  w_o_l = torch.where(delta[..., None], w_o_delta, w_o_ms)
+  weight = refl * torch.where(delta[..., None], f_delta, energy)
+  ok = w_o_l[..., 2] > em.kEpsilon
+  weight = torch.where(ok[..., None], weight, 0.0)
+  pdf = torch.where(ok, torch.where(delta, 1.0, pdf_rough), 0.0)
+
+  w_o = em.from_local(*frame, w_o_l)
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(em.normalize(w_o), weight, pdf, torch.ones(r, device=dev),
+                     *_flags(r, dev, delta, False, True), sd.medium)
+
+
+def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  """Energy-compensated closed form; zero on delta lanes."""
+  frame, _ = normal_frame(sd)
+  alpha = _roughness(sd)
+  alpha_c = mf.clamp_alpha(alpha)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  ok = (w_i_l[..., 2] > em.kEpsilon) & (w_o_l[..., 2] > em.kEpsilon) & ~_is_delta_alpha(alpha)
+
+  def fres(cos_t):
+    return _fresnel_at(scene, sd, cos_t, spectral)
+
+  value = energy_lut.conductor_eval_lut(fres, w_i_l, w_o_l, alpha_c)
+  pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, alpha_c)
+  bsdf = _reflectance(scene, sd, spectral) * value
+  return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def conductor_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
+  frame, _ = normal_frame(sd)
+  alpha = _roughness(sd)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  ok = (w_i_l[..., 2] > em.kEpsilon) & (w_o_l[..., 2] > em.kEpsilon) & ~_is_delta_alpha(alpha)
+  pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, mf.clamp_alpha(alpha))
+  return torch.where(ok, pdf, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Dielectric: exact delta reflect/refract when smooth; rough lanes take the
+# single-scatter VNDF sample scaled by the 1/E_d compensation
+# ---------------------------------------------------------------------------
+
+
+def _crossing_eta(scene, sd, ent, spectral):
+  """eta of this crossing: the far side's over the near side's."""
+  eta_io = _eta_ratio(scene, sd, spectral)
+  return torch.where(ent, eta_io, 1.0 / torch.clamp(eta_io, min=1e-6))
+
+
+def _half_vector(w_i_l, w_o_l, eta):
+  """The microfacet normal of a reflection or refraction, on the +z side."""
+  reflection = w_o_l[..., 2] > 0.0
+  m_r = em.normalize(w_i_l + w_o_l)
+  m_t = em.normalize(w_i_l + w_o_l * eta[..., None])
+  m = torch.where(reflection[..., None], m_r, m_t)
+  return m * torch.where(m[..., 2] >= 0.0, 1.0, -1.0)[..., None], reflection
+
+
+def _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral):
+  """The dielectric density in the flipped frame: visible-NDF probability x
+  Fresnel selection x |dwh/dwo| + |cos_o|."""
+  m, reflection = _half_vector(w_i_l, w_o_l, eta)
+  om = em.dot(w_o_l, m)
+  im = em.dot(w_i_l, m)
+  dwh_r = 1.0 / torch.clamp(4.0 * torch.abs(om), min=1e-9)
+  sqrt_denom = im + eta * om
+  dwh_t = em.sqr(eta) * torch.abs(om) / torch.clamp(em.sqr(sqrt_denom), min=1e-12)
+  dwh = torch.where(reflection, dwh_r, dwh_t)
+  d = mf.ggx_d(m, alpha_c)
+  lam_i = mf.smith_lambda(w_i_l, alpha_c)
+  prob = torch.clamp(im * d / torch.clamp(
+      (1.0 + lam_i) * torch.clamp(w_i_l[..., 2], min=1e-6), min=1e-9), min=0.0)
+  f = spx.monochromatic(_fresnel_at(scene, sd, im, spectral, swap=~ent), spectral)
+  prob = prob * torch.where(reflection, f, 1.0 - f)
+  return torch.abs(prob * dwh) + torch.abs(w_o_l[..., 2])
+
+
+def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  frame, ent = normal_frame(sd)
+  alpha = _roughness(sd)
+  delta = _is_delta_alpha(alpha)
+  alpha_c = mf.clamp_alpha(alpha)
+  w_i_l = _local_w_i(frame, sd)
+  eta = _crossing_eta(scene, sd, ent, spectral)
+
+  m = mf.sample_vndf(rnd[..., 0:2], w_i_l, alpha_c)
+  m = torch.where(delta[..., None], _up(m), m)
+
+  cos_im = em.dot(w_i_l, m)
+  f = _fresnel_at(scene, sd, cos_im, spectral, swap=~ent)
+  f_mono = spx.monochromatic(f, spectral)
+  pick_reflect = rnd[..., 2] < f_mono
+
+  w_r = em.reflect(-w_i_l, m)
+  # refraction through m with the relative eta
+  inv_eta = 1.0 / torch.clamp(eta, min=1e-6)
+  c = cos_im
+  sin2_t = (1.0 - c * c) * em.sqr(inv_eta)
+  tir = sin2_t >= 1.0
+  cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+  w_t = em.normalize((-w_i_l) * inv_eta[..., None] + (inv_eta * c - cos_t)[..., None] * m)
+
+  pick_reflect = pick_reflect | tir
+  w_o_l = torch.where(pick_reflect[..., None], w_r, w_t)
+
+  refl = _reflectance(scene, sd, spectral)
+  scat = _scattering(scene, sd, spectral)
+
+  g1 = mf.ggx_g1(w_i_l, m, alpha_c)
+  g2_r = g1 * mf.ggx_g1(w_r, m, alpha_c)
+  g2_t = g1 * mf.ggx_g1(torch.cat([w_t[..., :2], -w_t[..., 2:3]], dim=-1), m, alpha_c)
+
+  # radiance transport factor for refraction (camera paths): 1/eta^2
+  factor = em.sqr(inv_eta)
+  p_sel = torch.where(pick_reflect, torch.where(tir, 1.0, f_mono), 1.0 - f_mono)
+
+  g1_safe = torch.clamp(g1, min=1e-9)
+  shadow_r = torch.where(delta, 1.0, g2_r / g1_safe)[..., None]
+  shadow_t = torch.where(delta, 1.0, g2_t / g1_safe)[..., None]
+  w_refl = refl * (f / torch.clamp(f_mono, min=1e-9)[..., None]) * shadow_r
+  w_tran = (scat * ((1.0 - f) / torch.clamp(1.0 - f_mono, min=1e-9)[..., None])
+            * factor[..., None] * shadow_t)
+  w_refl_tir = refl * shadow_r
+  weight = torch.where(pick_reflect[..., None], torch.where(tir[..., None], w_refl_tir, w_refl),
+                       w_tran)
+
+  ok = torch.where(pick_reflect, w_o_l[..., 2] > 0.0, w_o_l[..., 2] < 0.0)
+  weight = torch.where(ok[..., None], weight, 0.0)
+
+  # rough lanes keep the single-scatter sample (its weight g2/g1 is
+  # f_ss / p) and gain the lost multiple-scatter energy through the same
+  # 1/E_d(mu_i) compensation the evaluation applies
+  a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
+  comp = energy_lut.dielectric_compensation(w_i_l[..., 2], a_iso, eta)
+  weight = torch.where(delta[..., None], weight, weight * comp[..., None])
+
+  pdf_rough = _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral)
+  pdf = torch.where(ok, torch.where(delta, p_sel, pdf_rough), 0.0)
+
+  w_o = em.normalize(em.from_local(*frame, w_o_l))
+  medium = torch.where(pick_reflect, sd.medium, _crossing_medium(sd, ent))
+  out_eta = torch.where(pick_reflect, 1.0, eta)
+  r = sd.w_i.shape[0]
+  return BSDFSampleR(w_o, weight, pdf, out_eta,
+                     *_flags(r, sd.w_i.device, delta, False, pick_reflect), medium)
+
+
+def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  """Rough dielectric: the analytic single-scatter Walter terms scaled by
+  the 1/E_d compensation; zero on delta lanes."""
+  frame, ent = normal_frame(sd)
+  alpha = _roughness(sd)
+  delta = _is_delta_alpha(alpha)
+  alpha_c = mf.clamp_alpha(alpha)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  cos_i = w_i_l[..., 2]
+  cos_o = w_o_l[..., 2]
+  eta = _crossing_eta(scene, sd, ent, spectral)
+  m, reflection = _half_vector(w_i_l, w_o_l, eta)
+
+  cos_im = em.dot(w_i_l, m)
+  f = _fresnel_at(scene, sd, cos_im, spectral, swap=~ent)
+  d = mf.ggx_d(m, alpha_c)
+  w_o_g = torch.where(reflection[..., None], w_o_l,
+                      torch.cat([w_o_l[..., :2], -w_o_l[..., 2:3]], dim=-1))
+  g = mf.ggx_g1(w_i_l, m, alpha_c) * mf.ggx_g1(w_o_g, m, alpha_c)
+
+  refl_alb = _reflectance(scene, sd, spectral)
+  scat_alb = _scattering(scene, sd, spectral)
+
+  im = cos_im
+  om = em.dot(w_o_l, m)
+  sqrt_denom = im + eta * om
+  # reflection: F D G2 / (4 cos_i |cos_o|)
+  f_refl = f * (d * g / torch.clamp(4.0 * cos_i * torch.abs(cos_o), min=1e-9))[..., None]
+  # transmission: |im om| (1-F) D G2 / (cos_i |cos_o| (im + eta om)^2): the
+  # eta^2 of the Walter term cancels the 1/eta^2 radiance transport factor
+  f_tran = (1.0 - f) * (torch.abs(im * om) * d * g / torch.clamp(
+      cos_i * torch.abs(cos_o) * em.sqr(sqrt_denom), min=1e-9))[..., None]
+  func = torch.where(reflection[..., None], refl_alb * f_refl, scat_alb * f_tran)
+  a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
+  comp = energy_lut.dielectric_compensation(torch.clamp(cos_i, min=1e-6), a_iso, eta)
+  bsdf = func * (comp * torch.abs(cos_o))[..., None]
+
+  pdf = _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral)
+  ok = (cos_i > em.kEpsilon) & (torch.abs(cos_o) > em.kEpsilon) & ~delta
+  return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def dielectric_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
+  frame, ent = normal_frame(sd)
+  alpha = _roughness(sd)
+  alpha_c = mf.clamp_alpha(alpha)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  eta = _crossing_eta(scene, sd, ent, spectral)
+  pdf = _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral)
+  ok = ((w_i_l[..., 2] > em.kEpsilon) & (torch.abs(w_o_l[..., 2]) > em.kEpsilon)
+        & ~_is_delta_alpha(alpha))
+  return torch.where(ok, pdf, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Thinfilm slab: delta reflect or pass straight through
+# ---------------------------------------------------------------------------
+
+
+def thinfilm_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  frame, ent = normal_frame(sd)
+  n = frame[2]
+  cos_i = em.dot(sd.w_i, sd.nrm)
+  f = _fresnel_at(scene, sd, cos_i, spectral)
+  f_mono = spx.monochromatic(f, spectral)
+  pick_refl = rnd[..., 2] <= f_mono
+  w_r = em.normalize(em.reflect(sd.w_i, n))
+  w_o = torch.where(pick_refl[..., None], w_r, sd.w_i)
+  refl = _reflectance(scene, sd, spectral)
+  scat = _scattering(scene, sd, spectral)
+  w_reflect = refl * f / torch.clamp(f_mono, min=1e-9)[..., None]
+  w_trans = scat * (1.0 - f) / torch.clamp(1.0 - f_mono, min=1e-9)[..., None]
+  weight = torch.where(pick_refl[..., None], w_reflect, w_trans)
+  pdf = torch.where(pick_refl, f_mono, 1.0 - f_mono)
+  medium = torch.where(pick_refl, sd.medium, _crossing_medium(sd, ent))
+  r = sd.w_i.shape[0]
+  return BSDFSampleR(w_o, weight, pdf, torch.ones(r, device=sd.w_i.device),
+                     *_flags(r, sd.w_i.device, True, False, pick_refl), medium)

@@ -2,8 +2,10 @@
 
 Counterpart of the area-emitter parts of `etx_tracer_tpu/render/emitters.py`
 (`sample_emitter_index`, `discrete_pdf`, `sample_emitter` with only the Area
-class, `area_radiance`). Environment and directional emitters are a later
-slice. Record lookups index the packed tables (scene/packed.py).
+class, `area_radiance`), in RGB and spectral mode: a spectral lane reads the
+emitter's SPD (the blackbody light of the Cornell box) at its wavelength.
+Environment and directional emitters are a later slice. Record lookups
+index the packed tables (scene/packed.py).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def _collimation(scene, trows) -> torch.Tensor:
 
 
 def sample_emitter(scene, emitter_index: torch.Tensor, rnd2: torch.Tensor,
-                   from_point: torch.Tensor) -> EmitterSample:
+                   from_point: torch.Tensor, wl=None, spectral: bool = False) -> EmitterSample:
   """A point on the selected area emitter as seen from `from_point`."""
   erows = packed.EmitterRows(scene.em_table[emitter_index])
   prows = packed.ProfileRows(scene.prof_table[erows.profile])
@@ -79,7 +81,7 @@ def sample_emitter(scene, emitter_index: torch.Tensor, rnd2: torch.Tensor,
   has_dir = (dist2 > 0.0) & (cos_tx > em.kEpsilon)
   pdf_dir = torch.where(has_dir, pdf_area * dist2 / torch.clamp(cos_tx, min=1e-12), 0.0)
   pdf_dir_out = torch.where(has_dir, pdf_area * cos_tx * em.kInvPi, 0.0)
-  emission = spx.query_spd(scene, prows.emission_spec)
+  emission = spx.query_spd(scene, prows.emission_spec, wl, spectral)
   return EmitterSample(
       value=torch.where(facing[..., None], emission, 0.0),
       origin=origin, normal=normal, direction=direction,
@@ -90,7 +92,8 @@ def sample_emitter(scene, emitter_index: torch.Tensor, rnd2: torch.Tensor,
       emitter_index=emitter_index, triangle_index=erows.triangle)
 
 
-def area_radiance(scene, emitter_index, ray_origin, hit_pos, directly_visible):
+def area_radiance(scene, emitter_index, ray_origin, hit_pos, directly_visible, wl=None,
+                  spectral: bool = False):
   """Radiance of a hit area emitter: (value (R,C), pdf_area, pdf_dir,
   pdf_dir_out); zero where emitter_index < 0 or on the back side."""
   valid = emitter_index >= 0
@@ -113,7 +116,7 @@ def area_radiance(scene, emitter_index, ray_origin, hit_pos, directly_visible):
   pdf_dir_out = torch.where(has, pdf_area * cos_tx * em.kInvPi, 0.0)
 
   prof_spec = scene.prof_table[erows.profile, 1].to(torch.int32)
-  value = spx.query_spd(scene, prof_spec)
+  value = spx.query_spd(scene, prof_spec, wl, spectral)
   ok = valid & facing
   return (torch.where(ok[..., None], value, 0.0),
           torch.where(ok, pdf_area, 0.0),

@@ -1,14 +1,16 @@
 """Host-side scene staging and freezing into the device scene.
 
-Counterpart of `etx_tracer_tpu/scene/builder.py` for what this slice renders:
-diffuse materials, RGB spectra, triangle meshes, area emitters and a pinhole
-camera. Staging and commit-time work (vertex normals, tangent frames,
-per-triangle area-emitter instancing, the power-based emitter distribution,
-the camera) run in numpy exactly as in the JAX package, so both packages
-freeze bit-identical tables. `build(device)` moves them onto the device.
-There is no BVH: the brute-force kernels trace up to 128 triangles without
-one. Other material classes, media, textures and distant emitters raise
-NotImplementedError.
+Counterpart of `etx_tracer_tpu/scene/builder.py` for what the port renders:
+Diffuse, Conductor, Dielectric and Thinfilm materials, RGB or spectral
+rendering, triangle meshes (with per-vertex normals when given), area
+emitters and a pinhole camera. Staging and commit-time work (vertex
+normals, tangent frames, per-triangle area-emitter instancing, the
+power-based emitter distribution, the camera, the spectrum bank) run in
+numpy exactly as in the JAX package, so both packages freeze bit-identical
+tables. `build(device)` moves them onto the device. There is no BVH: the
+brute-force and pair-tile kernels trace up to 4096 triangles without one.
+The other material classes, media, textures and distant emitters raise
+NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ kInvalid = -1
 @dataclasses.dataclass
 class MaterialDesc:
   """Host material description with the reference defaults. Every field is
-  packed into mat_table; this slice renders only `cls=Diffuse` without
-  images, subsurface or diffuse variations."""
+  packed into mat_table; the port renders the classes of `RENDERED_CLASSES`
+  without images, subsurface, alpha, media or diffuse variations."""
   name: str = ""
   cls: int = st.MaterialClass.Diffuse
   reflectance_spec: int = kInvalid
@@ -67,18 +69,22 @@ class MaterialDesc:
   thinfilm_max: float = 0.0
 
 
+RENDERED_CLASSES = (st.MaterialClass.Diffuse, st.MaterialClass.Conductor,
+                    st.MaterialClass.Dielectric, st.MaterialClass.Thinfilm)
+
+
 def _check_material(m: MaterialDesc):
-  if m.cls != st.MaterialClass.Diffuse:
+  if m.cls not in RENDERED_CLASSES:
     raise NotImplementedError(
-        f"material {m.name!r}: class {m.cls} is not Diffuse; "
-        "the full BSDF set is the materials slice")
+        f"material {m.name!r}: class {m.cls} (Translucent, Plastic, Mirror, Boundary, "
+        "Velvet, Principled, Void) is the slice that brings the remaining BSDFs")
   if (m.diffuse_variation != 0 or m.subsurface_cls != st.SubsurfaceClass.Disabled
       or m.opacity < 1.0 or m.int_medium != kInvalid or m.ext_medium != kInvalid):
     raise NotImplementedError(
         f"material {m.name!r}: diffuse variations, subsurface, alpha and media "
         "are later slices")
   if any(i != kInvalid for i in (m.reflectance_img, m.scattering_img, m.emission_img,
-                                 m.roughness_img, m.normal_img)):
+                                 m.roughness_img, m.normal_img, m.thinfilm_img)):
     raise NotImplementedError(f"material {m.name!r}: textures are a later slice")
 
 
@@ -176,8 +182,6 @@ class SceneBuilder:
   def arrays(self):
     """Commit the staged scene: (numpy arrays keyed by dotted DeviceScene
     field path, SceneConfig)."""
-    if self.spectral:
-      raise NotImplementedError("spectral mode is a later slice")
     if self.radiance_clamp > 0.0:
       raise NotImplementedError(
           "a radiance clamp disables deferred NEE; it is a later slice")
@@ -291,6 +295,7 @@ class SceneBuilder:
                                                  prof_ang, prof_disk, prof_cos),
         "emitters.pdf": pdf, "emitters.cdf": cdf,
         "emitters.total_weight": np.float32(total_w),
+        "spec_values": np.stack([s.values for s in self.spectra]).astype(np.float32),
         "spec_rgb": np.stack([s.integrated_rgb() for s in self.spectra]).astype(np.float32),
     }
     arrays.update(_build_camera(self.camera_origin, self.camera_target, self.camera_up,
@@ -299,8 +304,9 @@ class SceneBuilder:
 
     config = st.SceneConfig(
         film_width=self.film_size[0], film_height=self.film_size[1],
-        samples=self.samples, max_path_length=min(self.max_path_length, 4096),
-        rr_start=self.rr_start)
+        spectral=self.spectral, samples=self.samples,
+        max_path_length=min(self.max_path_length, 4096), rr_start=self.rr_start,
+        material_classes=tuple(sorted({m.cls for m in mats})))
     return arrays, config
 
   def build(self, device=None):

@@ -3,9 +3,9 @@
 Counterpart of `etx_tracer_tpu/scene/cornell.py`: the same canonical
 geometry (room x in [-1,1], y in [0,2], z in [-1,1], open towards the camera
 at +z; two boxes; a ceiling light), camera and materials, staged with the
-same numpy code so both packages freeze identical tables. This slice builds
-the diffuse-only variant in RGB mode: 36 triangles, one material class, two
-emitter triangles.
+same numpy code so both packages freeze identical tables: 36 triangles and
+two emitter triangles, in RGB or spectral mode, with a diffuse or (the
+default, as in the JAX package) a smooth conductor tall box.
 """
 
 from __future__ import annotations
@@ -48,25 +48,26 @@ def _box(builder, center, size, rotation_y_deg, material):
 
 
 def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
-                      diffuse_only=True, max_path_length=1023, with_light=True,
+                      diffuse_only=False, max_path_length=1023, with_light=True,
                       fog_scattering=0.0, fog_grid=None, specular_boxes=False):
   """Stage the Cornell box; returns a SceneBuilder (call .build(device)).
 
-  Only the diffuse-only RGB variant is in this slice; the other options
-  raise NotImplementedError naming the slice that brings them.
+  The specular boxes (a mirror) and fog raise NotImplementedError naming
+  the slice that brings them.
   """
-  if spectral:
-    raise NotImplementedError("spectral=True: spectral mode is the materials slice")
-  if not diffuse_only or specular_boxes:
+  if specular_boxes:
     raise NotImplementedError(
-        "conductor, dielectric and mirror boxes: the materials slice")
+        "specular_boxes: the mirror box is the slice that brings the remaining BSDFs")
   if fog_scattering > 0.0 or fog_grid is not None:
     raise NotImplementedError("fog: the media and subsurface slice")
   if not with_light:
-    raise NotImplementedError("a Cornell box without its light has no area emitter")
+    raise NotImplementedError(
+        "with_light=False: a Cornell box without its light needs distant emitters, "
+        "the environment and atmosphere slice")
 
   b = SceneBuilder()
   b.samples = samples
+  b.spectral = spectral
   b.max_path_length = max_path_length
   b.rr_start = 6
 
@@ -90,7 +91,19 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   m_green = b.add_material(MaterialDesc(name="green", cls=st.MaterialClass.Diffuse,
                                         scattering_spec=green, two_sided=True))
   m_short = m_gray
-  m_tall = m_gray
+  if diffuse_only:
+    m_tall = m_gray
+  else:
+    # conductor tall box: silver-like constant complex IOR
+    eta = b.add_spectrum(sp.SpectralDistribution.constant(
+        0.15, sp.SpectralDistribution.CLASS_CONDUCTOR))
+    k = b.add_spectrum(sp.SpectralDistribution.constant(
+        3.8, sp.SpectralDistribution.CLASS_CONDUCTOR))
+    m_tall = b.add_material(MaterialDesc(
+        name="tallBox", cls=st.MaterialClass.Conductor,
+        reflectance_spec=white, int_ior_eta=eta, int_ior_k=k,
+        int_ior_cls=sp.SpectralDistribution.CLASS_CONDUCTOR,
+        roughness=(0.0, 0.0), two_sided=True))
 
   # light: blackbody 2700K scaled 5.0, black diffuse base
   emission = b.add_spectrum(sp.SpectralDistribution.from_normalized_black_body(2700.0, 5.0))

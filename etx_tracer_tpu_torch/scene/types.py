@@ -1,9 +1,9 @@
 """Device scene tables and the static render configuration.
 
-Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the diffuse RGB
-path tracer reads: NamedTuples of torch tensors that all lie on one device,
-and a frozen `SceneConfig`. Field names and layouts are the JAX package's,
-so a test can compare the two scenes field by field.
+Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the path tracer
+of the Cornell and materials scenes reads: NamedTuples of torch tensors that
+all lie on one device, and a frozen `SceneConfig`. Field names and layouts
+are the JAX package's, so a test can compare the two scenes field by field.
 """
 
 from __future__ import annotations
@@ -62,8 +62,11 @@ class Emitters(NamedTuple):
 
 
 class DeviceScene(NamedTuple):
-  """The frozen device scene. `bvh` is None: at most 128 triangles in this
-  slice, which the brute-force kernels trace without one."""
+  """The frozen device scene. `bvh` is None: the brute-force and pair-tile
+  kernels trace up to 4096 triangles without one. `spec_at_wl` is set only
+  inside a spectral bounce: (the bounce's wavelength tensor, every SPD at
+  each lane's wavelength (R, S)), which `render/spectral.query_spd` reads for
+  queries at that very wavelength tensor."""
   tri_v0: torch.Tensor      # (T,3) Möller-Trumbore arrays
   tri_e1: torch.Tensor      # (T,3)
   tri_e2: torch.Tensor      # (T,3)
@@ -72,9 +75,11 @@ class DeviceScene(NamedTuple):
   em_table: torch.Tensor    # (E,6) packed emitter rows
   prof_table: torch.Tensor  # (P,9) packed emitter-profile rows
   emitters: Emitters
+  spec_values: torch.Tensor  # (S,441) spectrum bank on the 1 nm grid
   spec_rgb: torch.Tensor    # (S,3) spectrum bank rows as RGB
   camera: Camera
   bvh: Optional[object] = None
+  spec_at_wl: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +88,12 @@ class SceneConfig:
   slice supports; `scene_bridge.check_supported` rejects the rest)."""
   film_width: int = 640
   film_height: int = 640
+  spectral: bool = False
   samples: int = 256
   max_path_length: int = 65535
   rr_start: int = 6
+  # material classes present: dispatch runs only these lobes
+  material_classes: tuple = (0,)
   # "blackman-harris" (iteration 0 renders pixel centers), "box" or "center"
   pixel_filter: str = "blackman-harris"
 
@@ -115,6 +123,7 @@ def scene_from_arrays(arrays, device) -> DeviceScene:
   def sub(cls, prefix):
     return cls(**{f: t(f"{prefix}.{f}") for f in cls._fields})
 
-  flat = {f: t(f) for f in DeviceScene._fields if f not in ("emitters", "camera", "bvh")}
+  flat = {f: t(f) for f in DeviceScene._fields
+          if f not in ("emitters", "camera", "bvh", "spec_at_wl")}
   return DeviceScene(emitters=sub(Emitters, "emitters"), camera=sub(Camera, "camera"),
                      bvh=None, **flat)

@@ -14,16 +14,15 @@ import dataclasses
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.scene import types as st
+from etx_tracer_tpu_torch.scene.builder import RENDERED_CLASSES
 
-# JAX SceneConfig fields and the values this slice supports (anything else
+# JAX SceneConfig fields and the values the port supports (anything else
 # belongs to a later slice)
 _REQUIRED = {
-    "spectral": False,
     "has_media": False,
     "has_subsurface": False,
     "has_env_emitters": False,
     "has_images": False,
-    "material_classes": (st.MaterialClass.Diffuse,),
     "num_env_emitters": 0,
     "blue_noise": False,
     "emitter_classes": (st.EmitterClass.Area,),
@@ -40,8 +39,13 @@ def check_supported(config_fields) -> None:
   for name, want in _REQUIRED.items():
     if name in config_fields and config_fields[name] != want:
       raise NotImplementedError(
-          f"SceneConfig.{name}={config_fields[name]!r}: this slice renders only "
-          f"{name}={want!r} (diffuse RGB scenes with area emitters)")
+          f"SceneConfig.{name}={config_fields[name]!r}: the port renders only "
+          f"{name}={want!r} (scenes of area emitters without media or textures)")
+  classes = tuple(config_fields.get("material_classes", ()))
+  if not set(classes) <= set(RENDERED_CLASSES):
+    raise NotImplementedError(
+        f"SceneConfig.material_classes={classes!r}: the port renders the classes "
+        f"{RENDERED_CLASSES}; the others are the slice that brings the remaining BSDFs")
   if config_fields.get("pixel_filter", "blackman-harris") not in ("blackman-harris", "box", "center"):
     raise ValueError(f"unknown pixel_filter {config_fields['pixel_filter']!r}")
 

@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from etx_tracer_tpu_torch.models import path_tracing
-from etx_tracer_tpu_torch.ops import _build, brute_trace
+from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace
 from etx_tracer_tpu_torch.render import film
-from etx_tracer_tpu_torch.scene import cornell
+from etx_tracer_tpu_torch.scene import cornell, materials
 
 torch.set_num_threads(1)
 
@@ -124,3 +124,57 @@ def test_small_render_goes_through_the_kernels_and_matches_cpu(cuda):
   outliers = (np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)).any(axis=-1)
   assert outliers.mean() <= 0.02
   assert abs(card.mean() - cpu.mean()) <= 0.005 * cpu.mean()
+
+
+def _materials_case(rng, num_r, dev):
+  """The materials scene's 996 triangles and rays from inside the room."""
+  arrays, _ = materials.build_materials_scene((16, 16)).arrays()
+  tris = [torch.from_numpy(arrays[k]).to(dev) for k in ("tri_v0", "tri_e1", "tri_e2")]
+  rays = _case(rng, 996, num_r, dev)[3:]
+  rays[0] = rays[0] * 0.45 + torch.tensor([0.0, 1.0, 0.0], device=dev)
+  return tris + rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_t,masked", [(129, False), (996, True), (4096, False)])
+def test_pair_tile_kernels_match_plain(cuda, num_t, masked):
+  rng = np.random.default_rng(200 + num_t)
+  args = _materials_case(rng, 70001, cuda) if num_t == 996 else _case(rng, num_t, 70001, cuda)
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  before = dict(brute2_trace.launches)
+  hit = brute2_trace.intersect(*args, tri_mask=mask)
+  occ = brute2_trace.occluded(*args, tri_mask=mask)
+  assert brute2_trace.launches == {k: n + 1 for k, n in before.items()}
+  ref = brute2_trace.intersect_plain(*args, tri_mask=mask)
+  for got, want in zip(hit, ref):
+    assert got.dtype == want.dtype and torch.equal(got, want)
+  assert torch.equal(occ, brute2_trace.occluded_plain(*args, tri_mask=mask))
+  assert torch.equal(occ, hit.found)
+  assert 0.05 < hit.found.float().mean().item() < 0.99
+
+
+@pytest.mark.cuda
+def test_pair_tile_kernels_reject_what_they_do_not_take(cuda):
+  rng = np.random.default_rng(9)
+  with pytest.raises(ValueError, match="at most 4096"):
+    brute2_trace.intersect(*_case(rng, 4097, 256, cuda))
+  v0, e1, e2, o, d, t_min, t_max = _case(rng, 200, 256, cuda)
+  with pytest.raises(ValueError, match="contiguous"):
+    brute2_trace.occluded(v0, e1, e2, o, d, t_min, torch.stack([t_max, t_max], 1)[:, 0])
+
+
+@pytest.mark.cuda
+def test_materials_render_goes_through_the_pair_tile_kernels_and_matches_cpu(cuda):
+  for counts in (brute_trace.launches, brute2_trace.launches):
+    for key in counts:
+      counts[key] = 0
+  builder = materials.build_materials_scene((16, 16))
+  scene, config = builder.build(device=cuda)
+  card = film.result_image(path_tracing.render(scene, config, iterations=2)).cpu().numpy()
+  assert brute2_trace.launches["intersect"] > 0 and brute2_trace.launches["occluded"] > 0
+  assert brute_trace.launches == {"intersect": 0, "occluded": 0}
+  scene, config = builder.build(device="cpu")
+  cpu = film.result_image(path_tracing.render(scene, config, iterations=2, device="cpu")).numpy()
+  outliers = (np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)).any(axis=-1)
+  assert outliers.mean() <= 0.02
+  assert abs(card.mean() - cpu.mean()) <= 0.005 * abs(cpu.mean())

@@ -127,15 +127,17 @@ def test_scene_bridge_gives_the_builders_scene(jax_scene, port_scene):
                                           dataclasses.asdict(jax_scene[1]), device="cpu")
   want, want_config = port_scene
   assert config == want_config
-  for got_t, want_t in zip(scene[:-1], want[:-1]):
+  tables = [f for f in ptypes.DeviceScene._fields if f not in ("bvh", "spec_at_wl")]
+  for got_t, want_t in zip((getattr(scene, f) for f in tables),
+                           (getattr(want, f) for f in tables)):
     for g, w in zip(got_t if isinstance(got_t, tuple) else [got_t],
                     want_t if isinstance(want_t, tuple) else [want_t]):
       assert g.dtype == w.dtype and torch.equal(g, w)
   assert scene.bvh is None
 
 
-@pytest.mark.parametrize("field,value", [("spectral", True), ("has_media", True),
-                                         ("material_classes", (0, 3)),
+@pytest.mark.parametrize("field,value", [("has_images", True), ("has_media", True),
+                                         ("material_classes", (0, 6)),
                                          ("has_radiance_clamp", True)])
 def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
@@ -143,11 +145,34 @@ def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
     scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [{"spectral": True}, {"diffuse_only": False},
+@pytest.mark.parametrize("field,value", [("spectral", True), ("material_classes", (0, 3, 4, 5))])
+def test_scene_bridge_accepts_the_materials_options(jax_scene, field, value):
+  fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
+  _, config = scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
+  assert getattr(config, field) == value
+
+
+@pytest.mark.parametrize("kwargs", [{"with_light": False}, {"fog_grid": np.ones((2, 2, 2))},
                                     {"specular_boxes": True}, {"fog_scattering": 0.5}])
 def test_cornell_options_of_later_slices_raise(kwargs):
   with pytest.raises(NotImplementedError, match="slice"):
     pcornell.build_cornell_box(film_size=FILM, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"spectral": True, "diffuse_only": True},
+                                    {"diffuse_only": False}])
+def test_cornell_options_of_the_materials_slice_build_as_in_jax(kwargs):
+  """The spectral Cornell box and the one with the conductor tall box freeze
+  the JAX package's tables."""
+  arrays, config = pcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
+                                              **kwargs).arrays()
+  jscene, jconfig = jcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
+                                               **kwargs).build()
+  want = _jax_arrays(jscene)
+  for name in arrays:
+    np.testing.assert_array_equal(np.asarray(arrays[name]), want[name], err_msg=name)
+  for f in dataclasses.fields(ptypes.SceneConfig):
+    assert getattr(config, f.name) == getattr(jconfig, f.name), f.name
 
 
 # ----------------------------------------------------------------- modules
@@ -250,7 +275,8 @@ def test_diffuse_bsdf_matches_jax(jax_scene, port_scene):
                            wl=jnp.zeros(n), medium=jnp.full(n, -1, jnp.int32), mat=jmat)
   t = torch.from_numpy
   psd = plobes.ShadingData(w_i=t(w_i), nrm=t(nrm), tan=t(tan), btn=t(btn), geo_n=t(nrm),
-                           tex=torch.zeros((n, 2)),
+                           tex=torch.zeros((n, 2)), wl=torch.zeros(n),
+                           medium=torch.full((n,), -1, dtype=torch.int32),
                            mat=ppacked.MaterialRows(ps.mat_table[t(mat).long()]))
   want = jdispatch.sample(js, jsd, jnp.asarray(rnd), False, (0,), (0,))
   got = pdispatch.sample(ps, psd, t(rnd))

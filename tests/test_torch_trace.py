@@ -3,22 +3,30 @@
 The plain versions of the K1 (closest hit) and K2 (any hit) kernels in
 `etx_tracer_tpu_torch/ops/brute_trace.py` are held against the JAX package's
 CPU route, `trace.intersect_scan` and `trace.trace_occluded`, on the same
-numpy inputs. The JAX reference runs jitted, where XLA contracts products
-and sums into fused multiply-adds while the port rounds each operation, so
-hit distances agree to a relative 1e-5, not bit for bit, and `tri` is
-compared exactly wherever the ray's two nearest hits are not tied.
+numpy inputs. The plain versions of the K3 and K4 pair-tile kernels in
+`ops/brute2_trace.py` are held against the TPU kernels' own bodies,
+`pallas_trace._kernel_brute2` and `_kernel_brute2_anyhit`, run through
+`pl.pallas_call(interpret=True)`, and against `intersect_scan`. The JAX
+reference runs jitted, where XLA contracts products and sums into fused
+multiply-adds while the port rounds each operation, so hit distances agree
+to a relative 1e-5, not bit for bit, and `tri` is compared exactly wherever
+the ray's two nearest hits are not tied and no edge is grazed.
 """
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
+from etx_tracer_tpu.ops import pallas_trace as jpallas
 from etx_tracer_tpu.ops import trace as jtrace
-from etx_tracer_tpu_torch.ops import brute_trace
+from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace
 from etx_tracer_tpu_torch.ops import trace as ptrace
+from etx_tracer_tpu_torch.scene import materials as pmaterials
 
 torch.set_num_threads(1)
 
@@ -175,11 +183,119 @@ def test_dispatch_runs_plain_versions_on_cpu_and_counts_no_launch():
 
 @pytest.mark.parametrize("query", ["closest", "occluded"])
 def test_dispatch_above_128_triangles_raises(query):
+  """Above the pair-tile kernels' 4096 triangles the BVH kernels of a later
+  slice are needed: dispatch raises rather than fall back."""
   rng = np.random.default_rng(7)
-  v0, e1, e2 = _tris(rng, 129)
+  v0, e1, e2 = _tris(rng, brute2_trace.MAX_TRIS + 1)
   o, d, t_min, t_max = _torch(*_rays(rng, v0, e2, 64))
   scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
                                 tri_e2=torch.from_numpy(e2))
   fn = ptrace.trace_closest if query == "closest" else ptrace.trace_occluded
   with pytest.raises(NotImplementedError, match="later slice"):
     fn(scene, o, d, t_min, t_max)
+
+
+# ------------------------------------------------------- K3 / K4 (pair tile)
+
+
+def _interpret_brute2(v0, e1, e2, o, d, t_min, t_max, mask):
+  """The TPU kernels' bodies on the CPU: `_kernel_brute2` and
+  `_kernel_brute2_anyhit` through pallas_call in interpret mode, with the
+  wrappers' own tables and grid (BlockSpecs without a memory space)."""
+  tab = jpallas._brute2_tables(*(jnp.asarray(x) for x in (v0, e1, e2)),
+                               None if mask is None else jnp.asarray(mask))
+  rays, rp = jpallas._brute2_rays(*(jnp.asarray(x) for x in (o, d, t_min, t_max)))
+  grid = (rp // jpallas._B2_RB,)
+  tri_spec = pl.BlockSpec(tab.shape, lambda i: (0, 0))
+  ray_spec = pl.BlockSpec((jpallas._B2_RB, 8), lambda i: (i, 0))
+  col_spec = pl.BlockSpec((jpallas._B2_RB, 1), lambda i: (i, 0))
+
+  def col(dt):
+    return jax.ShapeDtypeStruct((rp, 1), dt)
+
+  hit = pl.pallas_call(
+      jpallas._kernel_brute2, grid=grid, in_specs=[tri_spec, ray_spec],
+      out_specs=[col_spec] * 4, interpret=True,
+      out_shape=[col(jnp.float32), col(jnp.int32), col(jnp.float32), col(jnp.float32)],
+  )(tab, rays)
+  occ = pl.pallas_call(
+      jpallas._kernel_brute2_anyhit, grid=grid, in_specs=[tri_spec, ray_spec],
+      out_specs=col_spec, out_shape=col(jnp.float32), interpret=True)(tab, rays)
+  n = o.shape[0]
+  return [np.asarray(x)[:n, 0] for x in hit], np.asarray(occ)[:n, 0] > 0.5
+
+
+@pytest.mark.parametrize("num_t,masked,seed", [(600, False, 20), (600, True, 21),
+                                               (1100, False, 22), (1100, True, 23)])
+def test_brute2_plain_matches_tpu_kernel_body(num_t, masked, seed):
+  rng = np.random.default_rng(seed)
+  v0, e1, e2 = _tris(rng, num_t)
+  o, d, t_min, t_max = _rays(rng, v0, e2, 512)
+  mask = rng.uniform(size=num_t) > 0.3 if masked else None
+  (rt, rtri, ru, rv), rocc = _interpret_brute2(v0, e1, e2, o, d, t_min, t_max, mask)
+  tmask = None if mask is None else torch.from_numpy(mask)
+  got = brute2_trace.intersect_plain(*_torch(v0, e1, e2, o, d, t_min, t_max), tri_mask=tmask)
+  occ = brute2_trace.occluded_plain(*_torch(v0, e1, e2, o, d, t_min, t_max),
+                                    tri_mask=tmask).numpy()
+  gtri = got.tri.numpy()
+  # a ray whose validity flips within float32 rounding (an edge or an
+  # interval end grazed) may differ; no other
+  grazing = _grazing(v0, e1, e2, o, d, t_min, t_max,
+                     np.ones(num_t, bool) if mask is None else mask)
+  assert not ((gtri != rtri) & ~grazing).any()
+  assert not ((occ != rocc) & ~grazing).any()
+  assert (gtri == rtri).mean() > 0.98
+  f = (rtri >= 0) & (gtri == rtri)
+  assert f.sum() >= 50
+  np.testing.assert_allclose(got.t.numpy()[f], rt[f], rtol=T_RTOL, atol=T_ATOL)
+  np.testing.assert_allclose(got.u.numpy()[f], ru[f], atol=UV_ATOL)
+  np.testing.assert_allclose(got.v.numpy()[f], rv[f], atol=UV_ATOL)
+  # misses as the TPU kernel writes them, and no ray with t_max in {-1, 0} hits
+  miss = gtri < 0
+  assert np.all(np.isinf(got.t.numpy()[miss])) and np.all(got.u.numpy()[miss] == 0.0)
+  assert np.all(gtri[t_max <= 0.0] == -1) and not occ[t_max <= 0.0].any()
+  np.testing.assert_array_equal(occ, gtri >= 0)
+
+
+def test_brute2_plain_matches_intersect_scan_on_the_materials_scene():
+  """The JAX package's CPU route at the materials scene's 996 triangles."""
+  arrays, _ = pmaterials.build_materials_scene((16, 16)).arrays()
+  v0, e1, e2 = (arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2"))
+  assert v0.shape == (996, 3)
+  rng = np.random.default_rng(24)
+  o, d, t_min, t_max = _rays(rng, v0, e2, 2048)
+  o = (o * np.float32(0.45) + np.float32([0.0, 1.0, 0.0])).astype(np.float32)  # inside the room
+  mask = np.ones(996, bool)
+  ref = _jax_hit(v0, e1, e2, o, d, t_min, t_max, mask)
+  got = brute2_trace.intersect_plain(*_torch(v0, e1, e2, o, d, t_min, t_max))
+  rtri, gtri = np.asarray(ref.tri), got.tri.numpy()
+  hits = _all_hits(v0, e1, e2, o, d, t_min, t_max, mask)
+  srt = np.sort(hits, axis=1)
+  with np.errstate(invalid="ignore"):
+    near_tie = np.isfinite(srt[:, 1]) & (srt[:, 1] - srt[:, 0] <= 1e-4 * np.maximum(1.0, srt[:, 0]))
+  clean = ~near_tie & ~_grazing(v0, e1, e2, o, d, t_min, t_max, mask)
+  assert clean.mean() > 0.8
+  np.testing.assert_array_equal(gtri[clean], rtri[clean])
+  f = clean & (rtri >= 0)
+  assert f.mean() > 0.4
+  np.testing.assert_allclose(got.t.numpy()[f], np.asarray(ref.t)[f], rtol=T_RTOL, atol=T_ATOL)
+  np.testing.assert_allclose(got.u.numpy()[f], np.asarray(ref.u)[f], atol=UV_ATOL)
+  occ = brute2_trace.occluded_plain(*_torch(v0, e1, e2, o, d, t_min, t_max)).numpy()
+  np.testing.assert_array_equal(occ, gtri >= 0)
+
+
+@pytest.mark.parametrize("num_t", [brute_trace.MAX_TRIS + 1, 996, brute2_trace.MAX_TRIS])
+def test_dispatch_takes_the_pair_tile_plain_versions_on_cpu(num_t):
+  rng = np.random.default_rng(num_t)
+  v0, e1, e2 = _tris(rng, num_t)
+  o, d, t_min, t_max = _torch(*_rays(rng, v0, e2, 256))
+  scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
+                                tri_e2=torch.from_numpy(e2))
+  before = (dict(brute_trace.launches), dict(brute2_trace.launches))
+  hit = ptrace.trace_closest(scene, o, d, t_min, t_max)
+  occ = ptrace.trace_occluded(scene, o, d, t_min, t_max)
+  ref = brute2_trace.intersect_plain(scene.tri_v0, scene.tri_e1, scene.tri_e2,
+                                     o, d, t_min, t_max)
+  assert all(torch.equal(a, b) for a, b in zip(hit, ref))
+  assert torch.equal(occ, ref.found)
+  assert (brute_trace.launches, brute2_trace.launches) == before
