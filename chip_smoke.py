@@ -5,7 +5,8 @@
 Phases, one line each with its elapsed seconds:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel source of the port (`csrc/`), one
-     process per source, all started together;
+     process per source, all started together, and reports each kernel's
+     registers, spills and stack frame;
   3. K1 closest hit and 4. K2 any hit: each kernel against its plain PyTorch
      version on the card, on 2^18 rays against the Cornell triangles (with
      and without masked rows) and against a random 128-triangle soup; rays
@@ -17,19 +18,32 @@ Phases, one line each with its elapsed seconds:
      4096-triangle soup and a 129-triangle soup (whose one chunk is mostly
      empty), with and without masked rows; timed at 2^18 rays x 996
      triangles;
-  7. main path, Cornell: the diffuse Cornell box at 512x512, max path length
-     1023, a 2^18-lane pool and 64 iterations through `render_samples_static`
-     and `finalize_film` (what `path_tracing.render` runs), with every kernel
-     launch counted; then one iteration of it under the profiler, to show
-     where a bounce's time goes;
-  8. main path, materials: the spectral materials showcase (996 triangles:
+  7. K5 fat-row BVH closest hit and 8. K6 fat-row any hit, then 9. K7
+     plain-node BVH closest hit and 10. K8 plain-node any hit: the same
+     checks on 2^18 rays against bigscene's tree (15,396 triangles, origins
+     inside the room) and the tree of a random 5000-triangle soup, with and
+     without masked rows; K7/K8 walk the same trees without their fat rows.
+     Timed at 2^18 rays against bigscene; each bound counts the box and
+     triangle tests the plain version's walk makes for those rays;
+  11. main path, Cornell: the diffuse Cornell box at 512x512, max path
+     length 1023, a 2^18-lane pool and 64 iterations through
+     `render_samples_static` and `finalize_film` (what `path_tracing.render`
+     runs), with every kernel launch counted; then one iteration of it under
+     the profiler, to show where a bounce's time goes;
+  12. main path, materials: the spectral materials showcase (996 triangles:
      Diffuse, Conductor, Dielectric and Thinfilm) at 512x512, max path
      length 16, a 2^18-lane pool and 8 iterations, counted and profiled the
      same way;
-  9. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  13. main path, bigscene: twelve icospheres in the Cornell box (15,396
+     triangles, Diffuse, RGB) at 512x512, max path length 8, a 2^18-lane
+     pool and 8 iterations, traced by K5/K6, counted and profiled the same
+     way;
+  14. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
-     against the same render on the CPU.
+     against the same render on the CPU; the 32x32 bigscene render (8 spp)
+     on the card against the CPU, through K5/K6, and again with the tree's
+     fat rows removed, through K7/K8.
 
 Any failed check raises, so the script exits non-zero. After every phase has
 passed it prints one JSON line with each kernel's numbers and, as its last
@@ -49,15 +63,21 @@ import torch
 
 from etx_tracer_tpu_torch.core import spectrum
 from etx_tracer_tpu_torch.models import path_tracing
-from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace
+from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.render import film as film_mod
-from etx_tracer_tpu_torch.scene import cornell, materials
+from etx_tracer_tpu_torch.scene import bigscene, cornell, materials
+from etx_tracer_tpu_torch.scene import types as scene_types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # FP32 adds, subtracts and multiplies per ray-triangle pair
 FLOPS_PER_PAIR = {brute_trace: 44, brute2_trace: 48}
+# ... per BVH triangle test (`_tri_hit`: 45 and a division) and per box
+# slab test (12 for the three slabs, 2 for the conservative far bound; the
+# 12 min/max and the compares not counted), from csrc/bvh_trace.cu
+FLOPS_PER_BVH_TRI = 45
+FLOPS_PER_BOX = 14
 
 # the JAX package's golden values for the 32x32 render (tests/test_golden.py)
 GOLDEN_MEAN = np.array([0.12571028, 0.05596193, 0.00888113])
@@ -82,6 +102,13 @@ MATERIALS_MEAN = (0.060, 0.0733)
 # against the JAX package (tests/test_torch_render.py, test_torch_materials.py)
 E2E_OUTLIERS = 0.02
 E2E_MEAN_RTOL = 0.005
+# bigscene main path: one `_pt_mrays` call of the JAX package's bench
+BIGSCENE_ITERATIONS = 8
+# the bigscene image mean at 512x512, 8 spp must lie in this range: the
+# port's CPU render of the scene at 64x64, 16 spp has mean 0.06337 (and at
+# 32x32, 8 spp 0.06316); tests/test_torch_bigscene.py holds that 64x64 mean
+# inside this range, which is 0.06337 +-10%
+BIGSCENE_MEAN = (0.0570, 0.0697)
 T0 = time.perf_counter()
 
 
@@ -130,10 +157,10 @@ def kernel_ms(fn, kernel_name: str, reps: int) -> float:
   return total_us / 1e3 / count
 
 
-def bound_ms(pairs: int, nbytes: int, flops_per_pair: int):
+def bound_ms(ops: int, nbytes: int):
   """Least time the card could take: the larger of the operations over the
   FP32 peak and the bytes over the HBM peak. Returns (ms, bound_by)."""
-  t_ops = pairs * flops_per_pair / PEAK_FP32_FLOPS
+  t_ops = ops / PEAK_FP32_FLOPS
   t_bytes = nbytes / PEAK_HBM_BYTES
   return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -146,6 +173,17 @@ def tri_soup(rng, n: int, dev):
   e1 = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
   e2 = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
   return [torch.from_numpy(a).to(dev) for a in (v0, e1, e2)]
+
+
+def soup_tree(rng, n: int, dev):
+  """(triangle arrays, BVH) of a random n-triangle soup, the tree built as
+  a scene's is."""
+  tris = tri_soup(rng, n, dev)
+  v0, e1, e2 = (x.cpu().numpy() for x in tris)
+  tree = bvh_build.build_bvh(v0, e1, e2)
+  arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+            **{f"bvh.{k}": v for k, v in tree.items()}}
+  return tris, scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)
 
 
 def test_rays(rng, v0, e1, e2, n: int, dev, inside=None):
@@ -186,6 +224,14 @@ def cornell_scene(film, mpl, dev):
 
 def materials_scene(film, dev):
   return materials.build_materials_scene(film).build(device=dev)
+
+
+def bigscene_scene(film, dev, fat_rows=True):
+  """Bigscene on `dev`; without fat rows the trace dispatch takes K7/K8."""
+  scene, config = bigscene.build_bigscene(film).build(device=dev)
+  if not fat_rows:
+    scene = scene._replace(bvh=scene_types.without_fat_rows(scene.bvh))
+  return scene, config
 
 
 def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, mask=None) -> int:
@@ -235,11 +281,24 @@ KERNELS = {
     "occluded_brute2": (brute2_trace, "occluded", "brute2_kernel",
                         "etx_tracer_tpu/ops/pallas_trace.py:1148",
                         "etx_tracer_tpu_torch/csrc/brute2_trace.cu"),
+    "intersect_bvh_fat": (bvh_trace, "intersect_fat", "bvh_fat_kernel",
+                          "etx_tracer_tpu/ops/pallas_trace.py:781",
+                          "etx_tracer_tpu_torch/csrc/bvh_trace.cu"),
+    "occluded_bvh_fat": (bvh_trace, "occluded_fat", "bvh_fat_kernel",
+                         "etx_tracer_tpu/ops/pallas_trace.py:818",
+                         "etx_tracer_tpu_torch/csrc/bvh_trace.cu"),
+    "intersect_bvh": (bvh_trace, "intersect_node", "bvh_node_kernel",
+                      "etx_tracer_tpu/ops/pallas_trace.py:482",
+                      "etx_tracer_tpu_torch/csrc/bvh_trace.cu"),
+    "occluded_bvh": (bvh_trace, "occluded_node", "bvh_node_kernel",
+                     "etx_tracer_tpu/ops/pallas_trace.py:524",
+                     "etx_tracer_tpu_torch/csrc/bvh_trace.cu"),
 }
+CLOSEST = ("intersect", "intersect_brute2", "intersect_bvh_fat", "intersect_bvh")
 
 
 def reset_counts():
-  for mod in (brute_trace, brute2_trace):
+  for mod in (brute_trace, brute2_trace, bvh_trace):
     for key in mod.launches:
       mod.launches[key] = 0
 
@@ -248,71 +307,100 @@ def read_counts():
   return {name: mod.launches[entry] for name, (mod, entry, *_) in KERNELS.items()}
 
 
-def compare_intersect(mod, label, tris, rays, mask):
-  hit = mod.intersect(*tris, *rays, tri_mask=mask)
-  ref = mod.intersect_plain(*tris, *rays, tri_mask=mask)
+def kernel_call(name, geometry, plain=False):
+  """The kernel's wrapper (or its plain version) bound to its geometry: the
+  triangle arrays for K1-K4, the BVH for K5-K8."""
+  mod, entry = KERNELS[name][:2]
+  fn = getattr(mod, f"{entry}_plain" if plain else entry)
+  tris, bvh = geometry
+  head = [bvh] if mod is bvh_trace else list(tris)
+  return lambda *rays, tri_mask=None: fn(*head, *rays, tri_mask=tri_mask)
+
+
+def compare_intersect(name, geometry, rays, mask):
+  hit = kernel_call(name, geometry)(*rays, tri_mask=mask)
+  ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
   torch.cuda.synchronize()
-  check(torch.equal(hit.tri, ref.tri), f"{label}: tri differs from the plain version")
+  check(torch.equal(hit.tri, ref.tri), f"{name}: tri differs from the plain version")
   found = ref.tri >= 0
-  check(torch.equal(torch.isinf(hit.t), torch.isinf(ref.t)), f"{label}: misses differ")
+  check(torch.equal(torch.isinf(hit.t), torch.isinf(ref.t)), f"{name}: misses differ")
   err = 0.0
   for a, b in ((hit.t, ref.t), (hit.u, ref.u), (hit.v, ref.v)):
     diff = torch.where(found, (a - b).abs(), 0.0)
     check(bool((diff <= KERNEL_ATOL * torch.clamp(b.abs(), min=1.0)).all()),
-          f"{label}: t/u/v differ from the plain version by up to {diff.max().item()}")
+          f"{name}: t/u/v differ from the plain version by up to {diff.max().item()}")
     err = max(err, diff.max().item())
   return err, float(found.float().mean().item())
 
 
-def compare_occluded(mod, label, tris, rays, mask):
-  occ = mod.occluded(*tris, *rays, tri_mask=mask)
-  ref = mod.occluded_plain(*tris, *rays, tri_mask=mask)
+def compare_occluded(name, geometry, rays, mask):
+  occ = kernel_call(name, geometry)(*rays, tri_mask=mask)
+  ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
   torch.cuda.synchronize()
-  check(torch.equal(occ, ref), f"{label}: occlusion differs from the plain version")
+  check(torch.equal(occ, ref), f"{name}: occlusion differs from the plain version")
   return float(occ.float().mean().item())
+
+
+def work(name, geometry, rays):
+  """(operations, bytes, what was counted) of one call, for its bound: the
+  FP32 operations the kernel's loop needs for these rays, and each ray byte
+  read once, each output byte written once and the tables read once."""
+  mod, entry = KERNELS[name][:2]
+  tris, bvh = geometry
+  num_r = rays[0].shape[0]
+  out_bytes = 16 if entry.startswith("intersect") else 1
+  if mod is bvh_trace:
+    stats = {"boxes": 0, "tris": 0}
+    getattr(bvh_trace, f"{entry}_plain")(bvh, *rays, stats=stats)
+    # the words the walk reads: a fat row but its skip word, a whole node
+    # row, a triangle row but its 2 pad words
+    table_bytes = (bvh.fat_table.shape[0] * 60 if entry.endswith("fat")
+                   else bvh.node_table.shape[0] * 32)
+    ops = stats["boxes"] * FLOPS_PER_BOX + stats["tris"] * FLOPS_PER_BVH_TRI
+    nbytes = num_r * (32 + out_bytes) + table_bytes + bvh.prim_tris.shape[0] * 40
+    return ops, nbytes, stats
+  live = int((rays[3] >= 0.0).sum().item())
+  t_tri = tris[0].shape[0]
+  if entry == "intersect":
+    pairs = live * t_tri
+  else:
+    counter = first_hit_pairs if mod is brute_trace else first_hit_pairs_brute2
+    pairs = counter(*tris, *rays)
+  return pairs * FLOPS_PER_PAIR[mod], num_r * (32 + out_bytes) + t_tri * 36, {"pairs": pairs}
 
 
 def kernel_phase(name, dev, rng, cases, timed):
   """Hold one kernel against its plain version on every case (with and
-  without masked rows); time both on `timed` = (label, tris, origin box)."""
-  mod, entry, kname, _, _ = KERNELS[name]
+  without masked rows); time both on `timed`. A case is (label, (tris,
+  bvh), origin box or None)."""
+  kname = KERNELS[name][2]
   err = 0.0
-  for label, tris, inside in cases:
+  for label, geometry, inside in cases:
+    tris = geometry[0]
     rays = test_rays(rng, *tris, RAYS, dev, inside)
     masks = (None, torch.from_numpy(rng.uniform(size=tris[0].shape[0]) > 0.25).to(dev))
     for mask in masks:
-      if entry == "intersect":
-        e, frac = compare_intersect(mod, name, tris, rays, mask)
+      if name in CLOSEST:
+        e, frac = compare_intersect(name, geometry, rays, mask)
         err = max(err, e)
       else:
-        frac = compare_occluded(mod, name, tris, rays, mask)
+        frac = compare_occluded(name, geometry, rays, mask)
       say(name, f"{label} tris={tris[0].shape[0]} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
 
-  # timing at the main path's shape: 2^18 rays against the scene's triangles
-  label, tris, inside = timed
-  rays = test_rays(rng, *tris, RAYS, dev, inside)
-  live = int((rays[3] >= 0.0).sum().item())
-  t_tri = tris[0].shape[0]
-
-  def run():
-    return getattr(mod, entry)(*tris, *rays)
-
-  def plain():
-    return getattr(mod, f"{entry}_plain")(*tris, *rays)
-
-  if entry == "intersect":
-    pairs = live * t_tri
-    nbytes = RAYS * (32 + 16) + t_tri * 36
-  else:
-    counter = first_hit_pairs if mod is brute_trace else first_hit_pairs_brute2
-    pairs = counter(*tris, *rays)
-    nbytes = RAYS * (32 + 1) + t_tri * 36
-  ms = kernel_ms(run, kname, 50)
-  plain_ms = event_ms(plain, 3)
-  b_ms, b_by = bound_ms(pairs, nbytes, FLOPS_PER_PAIR[mod])
-  say(name, f"2^18 rays x {t_tri} tris ({label}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-      f"bound {b_ms:.4f} ms by {b_by} ({pairs} pairs, {nbytes} bytes)")
+  # timing at the main path's shape: 2^18 rays against the scene
+  label, geometry, inside = timed
+  rays = test_rays(rng, *geometry[0], RAYS, dev, inside)
+  run = kernel_call(name, geometry)
+  plain = kernel_call(name, geometry, plain=True)
+  ops, nbytes, counted = work(name, geometry, rays)
+  ms = kernel_ms(lambda: run(*rays), kname, 50)
+  # the BVH walks' plain versions take seconds a call at this width: time one
+  plain_ms = event_ms(lambda: plain(*rays), 1 if KERNELS[name][0] is bvh_trace else 3)
+  b_ms, b_by = bound_ms(ops, nbytes)
+  say(name, f"2^18 rays x {geometry[0][0].shape[0]} tris ({label}): kernel {ms:.4f} ms, "
+      f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations "
+      f"from {counted}, {nbytes} bytes)")
   return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
           "bound_by": b_by}
 
@@ -385,6 +473,24 @@ def main_path_materials(scene, config, dev):
   return counts
 
 
+def main_path_bigscene(scene, config, dev):
+  check(not config.spectral and config.material_classes == (0,)
+        and scene.tri_v0.shape[0] == bigscene.NUM_TRIANGLES
+        and scene.bvh.fat_table is not None, f"bigscene config {config}")
+  img, counts, seconds, rays = render_main(
+      f"bigscene 512x512 mpl 8 pool 2^18 {BIGSCENE_ITERATIONS} spp", scene, config,
+      BIGSCENE_ITERATIONS, dev)
+  check(bool((img >= 0.0).all()), "bigscene: image has negative values")
+  mean = float(img.mean())
+  lo, hi = BIGSCENE_MEAN
+  check(lo <= mean <= hi, f"bigscene: image mean {mean} outside [{lo}, {hi}]")
+  left, right = check_thirds(img, "bigscene")
+  for key in ("intersect_bvh_fat", "occluded_bvh_fat"):
+    check(counts[key] > 0, f"the bigscene main path never launched the {key} kernel")
+  say("main", f"bigscene image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
+  return counts
+
+
 def profile_step_mix(label, scene, config, dev):
   """Where a main-path bounce spends its time: one iteration under the
   profiler. Prints kernels launched per bounce, the device's busy share of
@@ -393,7 +499,7 @@ def profile_step_mix(label, scene, config, dev):
   reset_counts()
   path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
   torch.cuda.synchronize()
-  steps = sum(read_counts()[k] for k in ("intersect", "intersect_brute2"))
+  steps = sum(read_counts()[k] for k in CLOSEST)
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
@@ -437,6 +543,8 @@ def card_vs_cpu(label, build, iterations):
 
 
 def end_to_end():
+  """The 32x32 renders on the card against the same renders on the CPU.
+  Returns the launch counts of the bigscene render through K7/K8."""
   card = card_vs_cpu("cornell 32x32 golden config", lambda d: cornell_scene((32, 32), 6, d), 4)
   mean = card.mean(axis=(0, 1))
   total = float(card.sum())
@@ -446,6 +554,22 @@ def end_to_end():
         f"card total {total} vs golden {GOLDEN_TOTAL}")
   say("e2e", f"card mean {mean}, total {total:.4f}: within rtol {GOLDEN_RTOL} of the golden values")
   card_vs_cpu("materials 32x32 spectral 4 spp", lambda d: materials_scene((32, 32), d), 4)
+
+  reset_counts()
+  card_vs_cpu("bigscene 32x32 8 spp (K5/K6)", lambda d: bigscene_scene((32, 32), d), 8)
+  counts = read_counts()
+  for key in ("intersect_bvh_fat", "occluded_bvh_fat"):
+    check(counts[key] > 0, f"the bigscene 32x32 render never launched the {key} kernel")
+  reset_counts()
+  card_vs_cpu("bigscene 32x32 8 spp without fat rows (K7/K8)",
+              lambda d: bigscene_scene((32, 32), d, fat_rows=False), 8)
+  counts = read_counts()
+  say("e2e", f"bigscene without fat rows: launches {counts}")
+  for key in ("intersect_bvh", "occluded_bvh"):
+    check(counts[key] > 0, f"the bigscene render without fat rows never launched the {key} kernel")
+  check(counts["intersect_bvh_fat"] == 0 and counts["occluded_bvh_fat"] == 0,
+        "the bigscene render without fat rows launched a fat-row kernel")
+  return counts
 
 
 def main() -> int:
@@ -470,31 +594,45 @@ def main() -> int:
   rng = np.random.default_rng(20261017)
   cornell_512 = cornell_scene((512, 512), 1023, dev)
   materials_512 = materials_scene((512, 512), dev)
-  cornell_tris = list(cornell_512[0][:3])
-  mat_tris = list(materials_512[0][:3])
-  small = [("cornell", cornell_tris, None),
-           ("soup128", tri_soup(rng, brute_trace.MAX_TRIS, dev), None)]
-  pair_tile = [("materials", mat_tris, ROOM),
-               ("soup4096", tri_soup(rng, brute2_trace.MAX_TRIS, dev), None),
-               ("soup129", tri_soup(rng, brute2_trace.MIN_TRIS, dev), None)]
+  bigscene_512 = bigscene_scene((512, 512), dev)
+  cornell_geo = (list(cornell_512[0][:3]), None)
+  mat_geo = (list(materials_512[0][:3]), None)
+  big_geo = (list(bigscene_512[0][:3]), bigscene_512[0].bvh)
+  small = [("cornell", cornell_geo, None),
+           ("soup128", (tri_soup(rng, brute_trace.MAX_TRIS, dev), None), None)]
+  pair_tile = [("materials", mat_geo, ROOM),
+               ("soup4096", (tri_soup(rng, brute2_trace.MAX_TRIS, dev), None), None),
+               ("soup129", (tri_soup(rng, brute2_trace.MIN_TRIS, dev), None), None)]
+  soup = soup_tree(rng, 5000, dev)
+  bvh_fat = [("bigscene", big_geo, ROOM), ("soup5000", soup, None)]
+  bvh_node = [("bigscene", (big_geo[0], scene_types.without_fat_rows(big_geo[1])), ROOM),
+              ("soup5000", (soup[0], scene_types.without_fat_rows(soup[1])), None)]
   results = {
-      "intersect": kernel_phase("intersect", dev, rng, small, ("cornell", cornell_tris, None)),
-      "occluded": kernel_phase("occluded", dev, rng, small, ("cornell", cornell_tris, None)),
-      "intersect_brute2": kernel_phase("intersect_brute2", dev, rng, pair_tile,
-                                       ("materials", mat_tris, ROOM)),
-      "occluded_brute2": kernel_phase("occluded_brute2", dev, rng, pair_tile,
-                                      ("materials", mat_tris, ROOM)),
+      "intersect": kernel_phase("intersect", dev, rng, small, small[0]),
+      "occluded": kernel_phase("occluded", dev, rng, small, small[0]),
+      "intersect_brute2": kernel_phase("intersect_brute2", dev, rng, pair_tile, pair_tile[0]),
+      "occluded_brute2": kernel_phase("occluded_brute2", dev, rng, pair_tile, pair_tile[0]),
+      "intersect_bvh_fat": kernel_phase("intersect_bvh_fat", dev, rng, bvh_fat, bvh_fat[0]),
+      "occluded_bvh_fat": kernel_phase("occluded_bvh_fat", dev, rng, bvh_fat, bvh_fat[0]),
+      "intersect_bvh": kernel_phase("intersect_bvh", dev, rng, bvh_node, bvh_node[0]),
+      "occluded_bvh": kernel_phase("occluded_bvh", dev, rng, bvh_node, bvh_node[0]),
   }
 
   counts = main_path_cornell(*cornell_512, dev)
   profile_step_mix("cornell 512x512", *cornell_512, dev)
   counts_mat = main_path_materials(*materials_512, dev)
   profile_step_mix("materials 512x512", *materials_512, dev)
-  end_to_end()
+  counts_big = main_path_bigscene(*bigscene_512, dev)
+  profile_step_mix("bigscene 512x512", *bigscene_512, dev)
+  counts_node = end_to_end()
 
   launches = {"intersect": counts["intersect"], "occluded": counts["occluded"],
               "intersect_brute2": counts_mat["intersect_brute2"],
-              "occluded_brute2": counts_mat["occluded_brute2"]}
+              "occluded_brute2": counts_mat["occluded_brute2"],
+              "intersect_bvh_fat": counts_big["intersect_bvh_fat"],
+              "occluded_bvh_fat": counts_big["occluded_bvh_fat"],
+              "intersect_bvh": counts_node["intersect_bvh"],
+              "occluded_bvh": counts_node["occluded_bvh"]}
   kernels = []
   for name, r in results.items():
     _, _, _, replaces, source = KERNELS[name]

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel source of the package, by library name
-SOURCES = {"brute_trace": "brute_trace.cu", "brute2_trace": "brute2_trace.cu"}
+SOURCES = {"brute_trace": "brute_trace.cu", "brute2_trace": "brute2_trace.cu",
+           "bvh_trace": "bvh_trace.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -7,10 +7,11 @@ emitters and a pinhole camera. Staging and commit-time work (vertex
 normals, tangent frames, per-triangle area-emitter instancing, the
 power-based emitter distribution, the camera, the spectrum bank) run in
 numpy exactly as in the JAX package, so both packages freeze bit-identical
-tables. `build(device)` moves them onto the device. There is no BVH: the
-brute-force and pair-tile kernels trace up to 4096 triangles without one.
-The other material classes, media, textures and distant emitters raise
-NotImplementedError naming the slice that brings them.
+tables, and the numpy BVH builder (`ops/bvh_build.py`, the JAX package's
+numpy builder) builds every scene's tree, as the JAX builder does.
+`build(device)` adds the BVH kernels' tables and moves them onto the
+device. The other material classes, media, textures and distant emitters
+raise NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.core import distribution as distlib
 from etx_tracer_tpu_torch.core import spectrum as sp
+from etx_tracer_tpu_torch.ops import bvh_build
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
 
@@ -298,6 +300,8 @@ class SceneBuilder:
         "spec_values": np.stack([s.values for s in self.spectra]).astype(np.float32),
         "spec_rgb": np.stack([s.integrated_rgb() for s in self.spectra]).astype(np.float32),
     }
+    tree = bvh_build.build_bvh(v0, e1, e2)
+    arrays.update({f"bvh.{k}": v for k, v in tree.items() if v is not None})
     arrays.update(_build_camera(self.camera_origin, self.camera_target, self.camera_up,
                                 self.camera_fov, self.film_size, self.clip_near,
                                 self.clip_far))
@@ -311,9 +315,11 @@ class SceneBuilder:
 
   def build(self, device=None):
     """Freeze the scene onto `device` (default: the CUDA card, which must
-    exist). Returns (DeviceScene, SceneConfig)."""
+    exist), with the BVH kernels' tables. Returns (DeviceScene,
+    SceneConfig)."""
     device = resolve_device(device)
     arrays, config = self.arrays()
+    arrays.update(bvh_build.kernel_tables(arrays))
     return st.scene_from_arrays(arrays, device), config
 
 

@@ -1,9 +1,10 @@
 """Device scene tables and the static render configuration.
 
 Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the path tracer
-of the Cornell and materials scenes reads: NamedTuples of torch tensors that
+of the Cornell, materials and bigscene scenes reads: NamedTuples of torch tensors that
 all lie on one device, and a frozen `SceneConfig`. Field names and layouts
-are the JAX package's, so a test can compare the two scenes field by field.
+are the JAX package's, so a test can compare the two scenes field by field,
+but for the BVH, which holds the port's kernel tables.
 """
 
 from __future__ import annotations
@@ -61,12 +62,31 @@ class Emitters(NamedTuple):
   total_weight: torch.Tensor   # () float32
 
 
+class BVH(NamedTuple):
+  """The tables the BVH kernels read (`ops/bvh_build.kernel_tables`, built
+  once when the scene is frozen, so no trace call builds a table), on the
+  scene's device. The tree itself, in the JAX package's layout, stays in
+  the scene's numpy arrays (`SceneBuilder.arrays`)."""
+  node_table: torch.Tensor  # (N,8) int32: min(3), max(3) as float32 bits, left, count
+  fat_table: Optional[torch.Tensor]  # (Ni,16) int32: fat rows, boxes as float32
+                                     # bits, L_first, R_first, counts, skip as int32
+  prim_tris: torch.Tensor   # (T,12) float32: v0, e1, e2 of prim_index[j], its
+                            # id as int32 bits, 2 zeros
+
+
+def without_fat_rows(bvh: BVH) -> BVH:
+  """The tree without its fat-row form: the trace dispatch then takes the
+  plain-node kernels K7/K8, as the JAX package does for such a tree."""
+  return bvh._replace(fat_table=None)
+
+
 class DeviceScene(NamedTuple):
-  """The frozen device scene. `bvh` is None: the brute-force and pair-tile
-  kernels trace up to 4096 triangles without one. `spec_at_wl` is set only
-  inside a spectral bounce: (the bounce's wavelength tensor, every SPD at
-  each lane's wavelength (R, S)), which `render/spectral.query_spd` reads for
-  queries at that very wavelength tensor."""
+  """The frozen device scene. Every scene carries its BVH: the trace
+  dispatch walks it above 4096 triangles, and the brute-force and pair-tile
+  kernels ignore it below. `spec_at_wl` is set only inside a spectral
+  bounce: (the bounce's wavelength tensor, every SPD at each lane's
+  wavelength (R, S)), which `render/spectral.query_spd` reads for queries at
+  that very wavelength tensor."""
   tri_v0: torch.Tensor      # (T,3) Möller-Trumbore arrays
   tri_e1: torch.Tensor      # (T,3)
   tri_e2: torch.Tensor      # (T,3)
@@ -78,7 +98,7 @@ class DeviceScene(NamedTuple):
   spec_values: torch.Tensor  # (S,441) spectrum bank on the 1 nm grid
   spec_rgb: torch.Tensor    # (S,3) spectrum bank rows as RGB
   camera: Camera
-  bvh: Optional[object] = None
+  bvh: Optional[BVH] = None
   spec_at_wl: Optional[tuple] = None
 
 
@@ -111,10 +131,23 @@ def to_device(scene: DeviceScene, device) -> DeviceScene:
   return _to(scene, torch.device(device))
 
 
+def bvh_from_arrays(arrays, device) -> BVH:
+  """The BVH from numpy arrays keyed "bvh.node_table", "bvh.fat_table" (may
+  be absent: a tree without fat rows) and "bvh.prim_tris"."""
+  device = torch.device(device)
+
+  def t(name):
+    return torch.from_numpy(np.array(arrays[f"bvh.{name}"], copy=True)).to(device)
+
+  fat = t("fat_table") if arrays.get("bvh.fat_table") is not None else None
+  return BVH(node_table=t("node_table"), fat_table=fat, prim_tris=t("prim_tris"))
+
+
 def scene_from_arrays(arrays, device) -> DeviceScene:
   """Build a DeviceScene from numpy arrays keyed by dotted field path
-  ("tri_v0", "camera.position", "emitters.cdf", ...). Extra keys are
-  ignored; a missing key raises KeyError."""
+  ("tri_v0", "camera.position", "emitters.cdf", "bvh.node_table", ...;
+  `bvh_from_arrays`). Extra keys are ignored; a missing key raises
+  KeyError, but for "bvh.fat_table"."""
   device = torch.device(device)
 
   def t(name):
@@ -126,4 +159,4 @@ def scene_from_arrays(arrays, device) -> DeviceScene:
   flat = {f: t(f) for f in DeviceScene._fields
           if f not in ("emitters", "camera", "bvh", "spec_at_wl")}
   return DeviceScene(emitters=sub(Emitters, "emitters"), camera=sub(Camera, "camera"),
-                     bvh=None, **flat)
+                     bvh=bvh_from_arrays(arrays, device), **flat)

@@ -13,6 +13,7 @@ import dataclasses
 
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.core import math as em
+from etx_tracer_tpu_torch.ops import bvh_build
 from etx_tracer_tpu_torch.scene import types as st
 from etx_tracer_tpu_torch.scene.builder import RENDERED_CLASSES
 
@@ -53,8 +54,9 @@ def check_supported(config_fields) -> None:
 def from_numpy(arrays, config_fields, device=None):
   """(DeviceScene, SceneConfig) from numpy arrays keyed by dotted field path
   ("tri_v0", "camera.position", "emitters.cdf", ...) and a mapping of
-  SceneConfig field values. The arrays are copied onto `device` (default:
-  the CUDA card, which must exist)."""
+  SceneConfig field values, the tree in the JAX layout ("bvh.node_min",
+  ...). The arrays, with the BVH kernels' tables built from the tree, are
+  copied onto `device` (default: the CUDA card, which must exist)."""
   device = resolve_device(device)
   check_supported(config_fields)
   if (float(arrays["camera.lens_radius"]) > em.kEpsilon
@@ -62,4 +64,5 @@ def from_numpy(arrays, config_fields, device=None):
     raise NotImplementedError("depth of field: a later slice")
   names = {f.name for f in dataclasses.fields(st.SceneConfig)}
   config = st.SceneConfig(**{k: v for k, v in config_fields.items() if k in names})
+  arrays = {**arrays, **bvh_build.kernel_tables(arrays)}
   return st.scene_from_arrays(arrays, device), config

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from etx_tracer_tpu_torch.models import path_tracing
-from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace
+from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.render import film
-from etx_tracer_tpu_torch.scene import cornell, materials
+from etx_tracer_tpu_torch.scene import bigscene, cornell, materials
+from etx_tracer_tpu_torch.scene import types as scene_types
 
 torch.set_num_threads(1)
 
@@ -178,3 +179,89 @@ def test_materials_render_goes_through_the_pair_tile_kernels_and_matches_cpu(cud
   outliers = (np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)).any(axis=-1)
   assert outliers.mean() <= 0.02
   assert abs(card.mean() - cpu.mean()) <= 0.005 * abs(cpu.mean())
+
+
+def _bvh_case(rng, which, num_r, dev):
+  """(BVH, rays): bigscene's tree with rays from inside the room, or the
+  tree of a random 3000-triangle soup."""
+  if which == "bigscene":
+    arrays, _ = bigscene.build_bigscene((16, 16)).arrays()
+    rays = _case(rng, 36, num_r, dev)[3:]
+    rays[0] = rays[0] * 0.45 + torch.tensor([0.0, 1.0, 0.0], device=dev)
+  else:
+    v0, e1, e2, *rays = _case(rng, 3000, num_r, dev)
+    arrays = {"tri_v0": v0.cpu().numpy(), "tri_e1": e1.cpu().numpy(), "tri_e2": e2.cpu().numpy()}
+    tree = bvh_build.build_bvh(arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"])
+    arrays.update({f"bvh.{k}": v for k, v in tree.items()})
+  return scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev), rays
+
+
+_BVH_KERNELS = {"fat": ("intersect_fat", "occluded_fat"), "node": ("intersect_node", "occluded_node")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fat", "node"])
+@pytest.mark.parametrize("which,masked", [("bigscene", False), ("soup", True)])
+def test_bvh_kernels_match_plain(cuda, form, which, masked):
+  rng = np.random.default_rng(300 + masked)
+  bvh, rays = _bvh_case(rng, which, 70001, cuda)
+  if form == "node":
+    bvh = scene_types.without_fat_rows(bvh)
+  num_t = bvh.prim_tris.shape[0]
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  closest, occluded = _BVH_KERNELS[form]
+  before = dict(bvh_trace.launches)
+  hit = getattr(bvh_trace, closest)(bvh, *rays, tri_mask=mask)
+  occ = getattr(bvh_trace, occluded)(bvh, *rays, tri_mask=mask)
+  assert bvh_trace.launches == {k: n + (k in (closest, occluded)) for k, n in before.items()}
+  ref = getattr(bvh_trace, f"{closest}_plain")(bvh, *rays, tri_mask=mask)
+  for got, want in zip(hit, ref):
+    assert got.dtype == want.dtype and torch.equal(got, want)
+  assert torch.equal(occ, getattr(bvh_trace, f"{occluded}_plain")(bvh, *rays, tri_mask=mask))
+  assert torch.equal(occ, hit.found)
+  assert 0.05 < hit.found.float().mean().item() < 0.99
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_reject_what_they_do_not_take(cuda):
+  rng = np.random.default_rng(10)
+  bvh, (o, d, t_min, t_max) = _bvh_case(rng, "soup", 256, cuda)
+  with pytest.raises(ValueError, match="float32"):
+    bvh_trace.intersect_fat(bvh, o.double(), d, t_min, t_max)
+  with pytest.raises(ValueError, match="shape"):
+    bvh_trace.occluded_node(bvh, o, d, t_min[:-1], t_max)
+  with pytest.raises(ValueError, match="contiguous"):
+    bvh_trace.occluded_fat(bvh, o, d, t_min, torch.stack([t_max, t_max], 1)[:, 0])
+  with pytest.raises(ValueError, match="on"):
+    bvh_trace.intersect_node(scene_types.to_device(bvh, "cpu")._replace(prim_tris=bvh.prim_tris),
+                             o, d, t_min, t_max)
+  with pytest.raises(ValueError, match="no fat rows"):
+    bvh_trace.intersect_fat(scene_types.without_fat_rows(bvh), o, d, t_min, t_max)
+  with pytest.raises(ValueError, match="tri_mask"):
+    bvh_trace.occluded_fat(bvh, o, d, t_min, t_max, tri_mask=torch.ones(3000, device=cuda))
+  with pytest.raises(ValueError, match="tri_mask"):
+    bvh_trace.intersect_node(bvh, o, d, t_min, t_max,
+                             tri_mask=torch.ones(2999, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fat", "node"])
+def test_bigscene_render_goes_through_the_bvh_kernels_and_matches_cpu(cuda, form):
+  for key in bvh_trace.launches:
+    bvh_trace.launches[key] = 0
+  builder = bigscene.build_bigscene((16, 16))
+
+  def scene_on(dev):
+    scene, config = builder.build(device=dev)
+    if form == "node":
+      scene = scene._replace(bvh=scene_types.without_fat_rows(scene.bvh))
+    return scene, config
+
+  card = film.result_image(path_tracing.render(*scene_on(cuda), iterations=2)).cpu().numpy()
+  closest, occluded = _BVH_KERNELS[form]
+  assert bvh_trace.launches[closest] > 0 and bvh_trace.launches[occluded] > 0
+  assert sum(bvh_trace.launches.values()) == bvh_trace.launches[closest] + bvh_trace.launches[occluded]
+  cpu = film.result_image(path_tracing.render(*scene_on("cpu"), iterations=2, device="cpu")).numpy()
+  outliers = (np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)).any(axis=-1)
+  assert outliers.mean() <= 0.02
+  assert abs(card.mean() - cpu.mean()) <= 0.005 * cpu.mean()

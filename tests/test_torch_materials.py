@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from benchmarks import scenes as jscenes
+from etx_tracer_tpu import native as jnative
 from etx_tracer_tpu.core import spectrum as jspec
 from etx_tracer_tpu.models import path_tracing as jpt
 from etx_tracer_tpu.render import emitters as jemitters
@@ -71,10 +72,11 @@ def _t(x):
 def _jax_arrays(scene):
   out = {}
   for name, v in scene._asdict().items():
-    if name in ("bvh", "images", "spec_at_wl"):
+    if name in ("images", "spec_at_wl"):
       continue
     if isinstance(v, tuple):
-      out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()})
+      out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()
+                  if x is not None})
     else:
       out[name] = np.asarray(v)
   return out
@@ -82,8 +84,12 @@ def _jax_arrays(scene):
 
 @pytest.fixture(scope="module")
 def jax_scenes():
-  """{spectral: (JAX DeviceScene, SceneConfig)} of the 16x16 materials scene."""
-  return {s: jscenes.materials(FILM, spectral=s).build() for s in (True, False)}
+  """{spectral: (JAX DeviceScene, SceneConfig)} of the 16x16 materials scene,
+  the BVH built by the JAX package's numpy builder (its native one turned
+  off), which the port copies."""
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
+    return {s: jscenes.materials(FILM, spectral=s).build() for s in (True, False)}
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from etx_tracer_tpu import native as jnative
 from etx_tracer_tpu.models import path_tracing as jpt
 from etx_tracer_tpu.ops import gather as jgather
 from etx_tracer_tpu.render import camera as jcamera
@@ -57,22 +58,32 @@ MEAN_RTOL = 0.005                 # whole render: image mean
 
 def _jax_arrays(scene):
   """The JAX DeviceScene's leaves as numpy arrays keyed by dotted field path
-  (the BVH, the image bank and the per-step cache aside)."""
+  (the image bank and the per-step cache aside; the BVH's fat rows only when
+  the tree has them)."""
   out = {}
   for name, v in scene._asdict().items():
-    if name in ("bvh", "images", "spec_at_wl"):
+    if name in ("images", "spec_at_wl"):
       continue
     if isinstance(v, tuple):
-      out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()})
+      out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()
+                  if x is not None})
     else:
       out[name] = np.asarray(v)
   return out
 
 
+def _numpy_tree(monkeypatch):
+  """Turn the JAX package's native BVH builder off: it builds its trees with
+  the numpy builder the port copies, so both packages freeze the same BVH."""
+  monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
+
+
 @pytest.fixture(scope="module")
 def jax_scene():
-  return jcornell.build_cornell_box(film_size=FILM, diffuse_only=True,
-                                    max_path_length=MPL).build()
+  with pytest.MonkeyPatch.context() as mp:
+    _numpy_tree(mp)
+    return jcornell.build_cornell_box(film_size=FILM, diffuse_only=True,
+                                      max_path_length=MPL).build()
 
 
 @pytest.fixture(scope="module")
@@ -127,13 +138,40 @@ def test_scene_bridge_gives_the_builders_scene(jax_scene, port_scene):
                                           dataclasses.asdict(jax_scene[1]), device="cpu")
   want, want_config = port_scene
   assert config == want_config
-  tables = [f for f in ptypes.DeviceScene._fields if f not in ("bvh", "spec_at_wl")]
+  tables = [f for f in ptypes.DeviceScene._fields if f != "spec_at_wl"]
   for got_t, want_t in zip((getattr(scene, f) for f in tables),
                            (getattr(want, f) for f in tables)):
     for g, w in zip(got_t if isinstance(got_t, tuple) else [got_t],
                     want_t if isinstance(want_t, tuple) else [want_t]):
       assert g.dtype == w.dtype and torch.equal(g, w)
-  assert scene.bvh is None
+  # the BVH kernels' tables hold the JAX tree, field by field
+  assert_bvh_holds_tree(scene.bvh, _jax_arrays(jax_scene[0]))
+  assert scene.bvh.node_table.shape == (25, 8) and scene.bvh.fat_table.shape == (12, 16)
+
+
+def assert_bvh_holds_tree(bvh, arrays):
+  """The device BVH's kernel tables hold the tree of the numpy scene arrays
+  (the JAX layout): boxes as float32 bits, int32 ids and counts, the
+  triangles in leaf order with their ids."""
+  def f32(x):
+    return x.contiguous().view(torch.float32).numpy()
+
+  nodes = bvh.node_table
+  np.testing.assert_array_equal(f32(nodes[:, 0:3]), arrays["bvh.node_min"])
+  np.testing.assert_array_equal(f32(nodes[:, 3:6]), arrays["bvh.node_max"])
+  np.testing.assert_array_equal(nodes[:, 6].numpy(), arrays["bvh.node_left"])
+  np.testing.assert_array_equal(nodes[:, 7].numpy(), arrays["bvh.node_count"])
+  fat = arrays.get("bvh.fat_rows")
+  assert (bvh.fat_table is None) == (fat is None)
+  if fat is not None:
+    np.testing.assert_array_equal(f32(bvh.fat_table[:, :12]), fat[:, :12])
+    np.testing.assert_array_equal(bvh.fat_table[:, 12:].numpy(), fat[:, 12:])
+  prim = np.asarray(arrays["bvh.prim_index"])
+  rows = bvh.prim_tris.numpy()
+  for k, name in enumerate(("tri_v0", "tri_e1", "tri_e2")):
+    np.testing.assert_array_equal(rows[:, 3 * k:3 * k + 3], arrays[name][prim])
+  np.testing.assert_array_equal(rows[:, 9].view(np.int32), prim)
+  assert not rows[:, 10:].any()
 
 
 @pytest.mark.parametrize("field,value", [("has_images", True), ("has_media", True),
@@ -161,9 +199,10 @@ def test_cornell_options_of_later_slices_raise(kwargs):
 
 @pytest.mark.parametrize("kwargs", [{"spectral": True, "diffuse_only": True},
                                     {"diffuse_only": False}])
-def test_cornell_options_of_the_materials_slice_build_as_in_jax(kwargs):
+def test_cornell_options_of_the_materials_slice_build_as_in_jax(monkeypatch, kwargs):
   """The spectral Cornell box and the one with the conductor tall box freeze
   the JAX package's tables."""
+  _numpy_tree(monkeypatch)
   arrays, config = pcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
                                               **kwargs).arrays()
   jscene, jconfig = jcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
@@ -392,6 +431,17 @@ from etx_tracer_tpu_torch.scene import cornell
 scene, config = cornell.build_cornell_box(film_size=(8, 8), max_path_length=4).build(device="cpu")
 img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from etx_tracer_tpu_torch.ops import trace
+from etx_tracer_tpu_torch.scene import bigscene, types
+big, _ = bigscene.build_bigscene((8, 8)).build(device="cpu")
+o = torch.tensor([[0.0, 1.0, 0.0]] * 4)
+d = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0]])
+t0, t1 = torch.full((4,), 1e-4), torch.full((4,), 1e30)
+hit = trace.trace_closest(big, o, d, t0, t1)
+assert bool(hit.found.all())
+slim = big._replace(bvh=types.without_fat_rows(big.bvh))
+assert torch.equal(trace.trace_occluded(slim, o, d, t0, t1), hit.found)
+assert "etx_tracer_tpu_torch.ops.bvh_trace" in sys.modules
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")

@@ -6,7 +6,9 @@ CPU route, `trace.intersect_scan` and `trace.trace_occluded`, on the same
 numpy inputs. The plain versions of the K3 and K4 pair-tile kernels in
 `ops/brute2_trace.py` are held against the TPU kernels' own bodies,
 `pallas_trace._kernel_brute2` and `_kernel_brute2_anyhit`, run through
-`pl.pallas_call(interpret=True)`, and against `intersect_scan`. The JAX
+`pl.pallas_call(interpret=True)`, and against `intersect_scan`; the
+dispatch above 4096 triangles takes the BVH kernels' plain versions
+(tests/test_torch_bigscene.py holds those against the JAX package). The JAX
 reference runs jitted, where XLA contracts products and sums into fused
 multiply-adds while the port rounds each operation, so hit distances agree
 to a relative 1e-5, not bit for bit, and `tri` is compared exactly wherever
@@ -24,9 +26,10 @@ from jax.experimental import pallas as pl
 
 from etx_tracer_tpu.ops import pallas_trace as jpallas
 from etx_tracer_tpu.ops import trace as jtrace
-from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace
+from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import trace as ptrace
 from etx_tracer_tpu_torch.scene import materials as pmaterials
+from etx_tracer_tpu_torch.scene import types as ptypes
 
 torch.set_num_threads(1)
 
@@ -183,15 +186,32 @@ def test_dispatch_runs_plain_versions_on_cpu_and_counts_no_launch():
 
 @pytest.mark.parametrize("query", ["closest", "occluded"])
 def test_dispatch_above_128_triangles_raises(query):
-  """Above the pair-tile kernels' 4096 triangles the BVH kernels of a later
-  slice are needed: dispatch raises rather than fall back."""
+  """Above the pair-tile kernels' 4096 triangles dispatch walks the scene's
+  BVH: K5/K6's plain versions over the fat rows, K7/K8's without them (on
+  the CPU, launching no kernel); a scene without a BVH raises rather than
+  fall back to a brute-force loop."""
   rng = np.random.default_rng(7)
   v0, e1, e2 = _tris(rng, brute2_trace.MAX_TRIS + 1)
   o, d, t_min, t_max = _torch(*_rays(rng, v0, e2, 64))
-  scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
-                                tri_e2=torch.from_numpy(e2))
+  tree = bvh_build.build_bvh(v0, e1, e2)
+  bvh = ptypes.bvh_from_arrays(bvh_build.kernel_tables(
+      {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2, **{f"bvh.{k}": v for k, v in tree.items()}}),
+      "cpu")
+  assert bvh.fat_table is not None
   fn = ptrace.trace_closest if query == "closest" else ptrace.trace_occluded
-  with pytest.raises(NotImplementedError, match="later slice"):
+  plains = {"closest": (bvh_trace.intersect_fat_plain, bvh_trace.intersect_node_plain),
+            "occluded": (bvh_trace.occluded_fat_plain, bvh_trace.occluded_node_plain)}[query]
+  before = (dict(brute_trace.launches), dict(brute2_trace.launches), dict(bvh_trace.launches))
+  for tree_form, plain in zip((bvh, ptypes.without_fat_rows(bvh)), plains):
+    scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
+                                  tri_e2=torch.from_numpy(e2), bvh=tree_form)
+    got, want = fn(scene, o, d, t_min, t_max), plain(tree_form, o, d, t_min, t_max)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) if query == "closest" \
+        else torch.equal(got, want)
+  assert (brute_trace.launches, brute2_trace.launches, bvh_trace.launches) == before
+  scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
+                                tri_e2=torch.from_numpy(e2), bvh=None)
+  with pytest.raises(ValueError, match="no BVH"):
     fn(scene, o, d, t_min, t_max)
 
 
