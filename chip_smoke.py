@@ -8,16 +8,18 @@ Phases, one line each with its elapsed seconds:
      process per source, all started together, and reports each kernel's
      registers, spills and stack frame;
   3. K1 closest hit and 4. K2 any hit: each kernel against its plain PyTorch
-     version on the card, on 2^18 rays against the Cornell triangles (with
-     and without masked rows) and against a random 128-triangle soup; rays
-     include axis-parallel ones, rays aimed at shared edges and vertices, and
-     rays with t_max = -1. Times each kernel and its plain version at 2^18
-     rays x 36 triangles;
+     version on the card, on 2^18 rays against the Cornell triangles and a
+     random 128-triangle soup, and on 2^16 rays against the materials
+     scene's 996 and bigscene's 15,396 triangles (the kernels take any
+     count; the dispatch sends them at most 128), with and without masked
+     rows; rays include axis-parallel ones, rays aimed at shared edges and
+     vertices, and rays with t_max = -1. Times each kernel and its plain
+     version at 2^18 rays x 36 triangles, and K1's at 2^16 rays x 15,396;
   5. K3 pair-tile closest hit and 6. K4 pair-tile any hit: the same checks
      on 2^18 rays against the materials scene's 996 triangles, a random
-     4096-triangle soup and a 129-triangle soup (whose one chunk is mostly
-     empty), with and without masked rows; timed at 2^18 rays x 996
-     triangles;
+     4096-triangle soup, a 129-triangle soup (whose one chunk is mostly
+     empty), the Cornell triangles and bigscene's 15,396; timed, with the
+     plain version, at 2^18 rays x 996 triangles, K3 also x 15,396;
   7. K5 fat-row BVH closest hit and 8. K6 fat-row any hit, then 9. K7
      plain-node BVH closest hit and 10. K8 plain-node any hit: the same
      checks on 2^18 rays against bigscene's tree (15,396 triangles, origins
@@ -25,25 +27,43 @@ Phases, one line each with its elapsed seconds:
      without masked rows; K7/K8 walk the same trees without their fat rows.
      Timed at 2^18 rays against bigscene; each bound counts the box and
      triangle tests the plain version's walk makes for those rays;
-  11. main path, Cornell: the diffuse Cornell box at 512x512, max path
+  11. K9a Woop closest hit and 12. K9b Woop any hit: the same checks on
+     2^18 rays against the materials (996), caustics (1,060) and bigscene
+     (dense, 15,396) scenes and the 4096- and 129-triangle soups; timed, with
+     the plain version, at 2^18 rays x 996 triangles, K9a also x 15,396; then,
+     for comparison only, the time of the FP32 `torch.matmul` of the
+     (R, 8) x (8, 6 x 512) products that the TPU kernel hands to its matrix
+     unit;
+  13. main path, Cornell: the diffuse Cornell box at 512x512, max path
      length 1023, a 2^18-lane pool and 64 iterations through
      `render_samples_static` and `finalize_film` (what `path_tracing.render`
      runs), with every kernel launch counted; then one iteration of it under
-     the profiler, to show where a bounce's time goes;
-  12. main path, materials: the spectral materials showcase (996 triangles:
+     the profiler, to show where a bounce's time goes and each trace
+     kernel's device time per launch;
+  14. main path, materials: the spectral materials showcase (996 triangles:
      Diffuse, Conductor, Dielectric and Thinfilm) at 512x512, max path
      length 16, a 2^18-lane pool and 8 iterations, counted and profiled the
      same way;
-  13. main path, bigscene: twelve icospheres in the Cornell box (15,396
+  15. main path, bigscene: twelve icospheres in the Cornell box (15,396
      triangles, Diffuse, RGB) at 512x512, max path length 8, a 2^18-lane
      pool and 8 iterations, traced by K5/K6, counted and profiled the same
      way;
-  14. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  16. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
      against the same render on the CPU; the 32x32 bigscene render (8 spp)
      on the card against the CPU, through K5/K6, and again with the tree's
-     fat rows removed, through K7/K8.
+     fat rows removed, through K7/K8;
+  17. micro: the micro-benchmark entry
+     (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
+     groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
+     against bigscene; `trace_brute`: K3/K4 against K9a/K9b on 2^18 random
+     rays against materials, caustics and bigscene; `trace_sorted` and
+     `trace_oracle`: K5 on sorted rays) and prints its lines, with the launch
+     counts set to 0 before each group and read after; checks that K5 and
+     K1 give equal t, that sorted rays get their unsorted hits, and prints
+     K9a's agreement with K3 (the share of equal `tri`, the largest relative
+     |dt|). K9a/K9b's launches in the `kernels` line are `trace_brute`'s.
 
 Any failed check raises, so the script exits non-zero. After every phase has
 passed it prints one JSON line with each kernel's numbers and, as its last
@@ -63,16 +83,22 @@ import torch
 
 from etx_tracer_tpu_torch.core import spectrum
 from etx_tracer_tpu_torch.models import path_tracing
+from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
+from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film as film_mod
-from etx_tracer_tpu_torch.scene import bigscene, cornell, materials
+from etx_tracer_tpu_torch.scene import bigscene, caustics, cornell, materials
 from etx_tracer_tpu_torch.scene import types as scene_types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# FP32 adds, subtracts and multiplies per ray-triangle pair
-FLOPS_PER_PAIR = {brute_trace: 44, brute2_trace: 48}
+# FP32 adds, subtracts and multiplies per ray-triangle pair (Woop: 18 for
+# w = A o + b, 15 for q = A d, the division, 4 for u and v, 1 for u + v)
+FLOPS_PER_PAIR = {brute_trace: 44, brute2_trace: 48, woop_trace: 39}
+# bytes of one triangle as the kernel reads it: v0, e1, e2 (K1-K4) or a
+# 12-float Woop row (K9a/K9b)
+TRI_BYTES = {brute_trace: 36, brute2_trace: 36, woop_trace: 48}
 # ... per BVH triangle test (`_tri_hit`: 45 and a division) and per box
 # slab test (12 for the three slabs, 2 for the conservative far bound; the
 # 12 min/max and the compares not counted), from csrc/bvh_trace.cu
@@ -90,6 +116,9 @@ GOLDEN_RTOL = 2e-3
 KERNEL_ATOL = 1e-6
 
 RAYS = 1 << 18
+# rays of a K1/K2 check case against thousands of triangles, where the plain
+# versions' per-triangle loops are slow (seconds a call at 2^16 x 15,396)
+FEW_RAYS = 1 << 16
 ITERATIONS = 64  # Cornell main-path samples per pixel: one chunk of the JAX package's bench
 # materials main path: one `_pt_mrays` call of the JAX package's bench
 MATERIALS_ITERATIONS = 8
@@ -248,19 +277,25 @@ def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, mask=None) -> int:
   return int(torch.where(live, first, 0.0).sum().item())
 
 
-def first_hit_pairs_brute2(v0, e1, e2, o, d, t_min, t_max) -> int:
-  """Ray-triangle pairs K4's any-hit loop tests: up to each live ray's first
-  valid pair, by K4's own validity test."""
+def first_hit_pairs_chunked(mod, v0, e1, e2, o, d, t_min, t_max) -> int:
+  """Ray-triangle pairs K4's or K9b's any-hit loop tests: up to each live
+  ray's first valid pair, by the kernel's own validity test (`mod._pairs`),
+  one 512-triangle chunk at a time."""
+  if mod is woop_trace:
+    tab = woop_trace.woop_tables(v0, e1, e2)
+    valid = lambda c, ray: woop_trace._pairs(tab[c], ray)[0]
+  else:
+    valid = lambda c, ray: brute2_trace._pairs(v0[c], e1[c], e2[c], ray)[0]
   num_t = v0.shape[0]
   total = 0
-  step = 1 << 13
-  for r0 in range(0, o.shape[0], step):
-    sl = slice(r0, r0 + step)
-    ray = tuple(x[sl, k:k + 1] for x in (o, d) for k in range(3))
-    ray = ray + (t_min[sl, None], t_max[sl, None])
-    ok = brute2_trace._pairs(v0, e1, e2, ray)[0]
-    idx = torch.arange(num_t, 0, -1, device=o.device)   # num_t - j: the first wins
-    first = torch.where(ok.any(dim=1), num_t - (ok * idx).amax(dim=1) + 1, num_t)
+  for sl, ray in mod._ray_tiles(o, d, t_min, t_max):
+    first = torch.full((ray[0].shape[0],), num_t, dtype=torch.int64, device=o.device)
+    for s in range(0, num_t, mod.CHUNK):
+      ok = valid(slice(s, s + mod.CHUNK), ray)
+      width = ok.shape[1]
+      rev = torch.arange(width, 0, -1, device=o.device)   # width - j: the first wins
+      at = s + width - (ok * rev).amax(dim=1)             # first valid index
+      first = torch.minimum(first, torch.where(ok.any(dim=1), at + 1, num_t))
     total += int(torch.where(t_max[sl] >= 0.0, first, 0).sum().item())
   return total
 
@@ -293,12 +328,19 @@ KERNELS = {
     "occluded_bvh": (bvh_trace, "occluded_node", "bvh_node_kernel",
                      "etx_tracer_tpu/ops/pallas_trace.py:524",
                      "etx_tracer_tpu_torch/csrc/bvh_trace.cu"),
+    "intersect_woop": (woop_trace, "intersect", "woop_kernel",
+                       "etx_tracer_tpu/ops/pallas_trace.py:1365",
+                       "etx_tracer_tpu_torch/csrc/woop_trace.cu"),
+    "occluded_woop": (woop_trace, "occluded", "woop_kernel",
+                      "etx_tracer_tpu/ops/pallas_trace.py:1392",
+                      "etx_tracer_tpu_torch/csrc/woop_trace.cu"),
 }
-CLOSEST = ("intersect", "intersect_brute2", "intersect_bvh_fat", "intersect_bvh")
+CLOSEST = ("intersect", "intersect_brute2", "intersect_bvh_fat", "intersect_bvh",
+           "intersect_woop")
 
 
 def reset_counts():
-  for mod in (brute_trace, brute2_trace, bvh_trace):
+  for mod in (brute_trace, brute2_trace, bvh_trace, woop_trace):
     for key in mod.launches:
       mod.launches[key] = 0
 
@@ -363,21 +405,24 @@ def work(name, geometry, rays):
   t_tri = tris[0].shape[0]
   if entry == "intersect":
     pairs = live * t_tri
+  elif mod is brute_trace:
+    pairs = first_hit_pairs(*tris, *rays)
   else:
-    counter = first_hit_pairs if mod is brute_trace else first_hit_pairs_brute2
-    pairs = counter(*tris, *rays)
-  return pairs * FLOPS_PER_PAIR[mod], num_r * (32 + out_bytes) + t_tri * 36, {"pairs": pairs}
+    pairs = first_hit_pairs_chunked(mod, *tris, *rays)
+  nbytes = num_r * (32 + out_bytes) + t_tri * TRI_BYTES[mod]
+  return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs}
 
 
 def kernel_phase(name, dev, rng, cases, timed):
   """Hold one kernel against its plain version on every case (with and
-  without masked rows); time both on `timed`. A case is (label, (tris,
-  bvh), origin box or None)."""
+  without masked rows), then time both on each case of `timed`; the first
+  timed case is the one the `kernels` line reports. A case is (label,
+  (tris, bvh), origin box or None, rays)."""
   kname = KERNELS[name][2]
   err = 0.0
-  for label, geometry, inside in cases:
+  for label, geometry, inside, num_r in cases:
     tris = geometry[0]
-    rays = test_rays(rng, *tris, RAYS, dev, inside)
+    rays = test_rays(rng, *tris, num_r, dev, inside)
     masks = (None, torch.from_numpy(rng.uniform(size=tris[0].shape[0]) > 0.25).to(dev))
     for mask in masks:
       if name in CLOSEST:
@@ -385,24 +430,24 @@ def kernel_phase(name, dev, rng, cases, timed):
         err = max(err, e)
       else:
         frac = compare_occluded(name, geometry, rays, mask)
-      say(name, f"{label} tris={tris[0].shape[0]} masked={mask is not None} "
+      say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
 
-  # timing at the main path's shape: 2^18 rays against the scene
-  label, geometry, inside = timed
-  rays = test_rays(rng, *geometry[0], RAYS, dev, inside)
-  run = kernel_call(name, geometry)
-  plain = kernel_call(name, geometry, plain=True)
-  ops, nbytes, counted = work(name, geometry, rays)
-  ms = kernel_ms(lambda: run(*rays), kname, 50)
-  # the BVH walks' plain versions take seconds a call at this width: time one
-  plain_ms = event_ms(lambda: plain(*rays), 1 if KERNELS[name][0] is bvh_trace else 3)
-  b_ms, b_by = bound_ms(ops, nbytes)
-  say(name, f"2^18 rays x {geometry[0][0].shape[0]} tris ({label}): kernel {ms:.4f} ms, "
-      f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations "
-      f"from {counted}, {nbytes} bytes)")
-  return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-          "bound_by": b_by}
+  rows = []
+  for label, geometry, inside, num_r in timed:
+    rays = test_rays(rng, *geometry[0], num_r, dev, inside)
+    run = kernel_call(name, geometry)
+    plain = kernel_call(name, geometry, plain=True)
+    ops, nbytes, counted = work(name, geometry, rays)
+    ms = kernel_ms(lambda: run(*rays), kname, 50)
+    # one timed call after a warm one: the plain versions take up to seconds
+    plain_ms = event_ms(lambda: plain(*rays), 1)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    say(name, f"{num_r} rays x {geometry[0][0].shape[0]} tris ({label}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations "
+        f"from {counted}, {nbytes} bytes)")
+    rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+  return {"max_abs_err": err, **rows[0]}
 
 
 def check_thirds(img, what):
@@ -519,6 +564,11 @@ def profile_step_mix(label, scene, config, dev):
       f"{launched / max(steps, 1):.0f} kernels per bounce")
   for t, count, key in by_name[:6]:
     say("profile", f"  {t / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+  names = {entry[2] for entry in KERNELS.values()}
+  for t, count, key in by_name:
+    if any(n in key for n in names):
+      say("profile", f"  trace kernel {key[:60]}: {count} launches, "
+          f"{t / 1e3 / count:.4f} ms per launch")
 
 
 def render_small(build, dev_name: str, iterations: int):
@@ -572,6 +622,97 @@ def end_to_end():
   return counts
 
 
+def micro_phase(dev):
+  """The micro-benchmark entry's four trace groups at full width, each with
+  the launch counts set to 0 just before it and read just after; checks
+  that every line went through its kernels and that the kernels agree:
+  K5 and K1 give equal t (one triangle test), the sorted and oracle orders
+  give each ray the unsorted hit, and K9a agrees with K3. Returns the
+  launch counts of `trace_brute`, the path that runs K9a/K9b."""
+  wants = {"trace": ("intersect_bvh_fat", "intersect"),
+           "trace_brute": ("intersect_brute2", "occluded_brute2", "intersect_woop",
+                           "occluded_woop"),
+           "trace_sorted": ("intersect_bvh_fat",), "trace_oracle": ("intersect_bvh_fat",)}
+  lines, counts = {}, {}
+  for group, want in wants.items():
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = micro.run(group, dev)
+    torch.cuda.synchronize()
+    counts[group] = read_counts()
+    launched = {k: n for k, n in counts[group].items() if n}
+    say("micro", f"{group}: {len(out)} lines in {time.perf_counter() - t0:.1f} s, "
+        f"launches {launched}")
+    check(set(launched) == set(want), f"micro {group} launched {launched}, not {want}")
+    check(all(np.isfinite(x.seconds) and x.seconds > 0.0 for x in out),
+          f"micro {group}: a step time is not a positive number")
+    lines[group] = {x.label: x for x in out}
+
+  big = micro.scene("bigscene", str(dev))
+  for kind in ("primary", "bounce", "random"):
+    fat, brute = (lines["trace"][f"{k} {kind}"].result for k in ("fat", "brute"))
+    check(torch.equal(fat.t, brute.t), f"micro trace {kind}: K5 and K1 give other t")
+    # the kernels' device time per launch on the group's rays, by CUDA
+    # events around back-to-back calls (one launch a call, no chained ops)
+    rays = micro._rays(big, micro.SIZES["trace"], kind, dev)
+    k5_ms = event_ms(lambda: bvh_trace.intersect_fat(big.bvh, *rays), 20)
+    k1_ms = event_ms(lambda: brute_trace.intersect(*big[:3], *rays), 5)
+    say("micro", f"trace {kind}: K5 {k5_ms:.4f} ms and K1 {k1_ms:.4f} ms per call (events); "
+        f"equal t, equal tri {(fat.tri == brute.tri).float().mean().item():.5f}, hit fraction "
+        f"{fat.found.float().mean().item():.4f}")
+  for kind in ("bounce", "random"):
+    o, d, t_min, t_max = micro._rays(big, micro.SIZES["trace_sorted"], kind, dev)
+    want = bvh_trace.intersect_fat(big.bvh, o, d, t_min, t_max)
+    got = lines["trace_sorted"][f"fat+sort {kind}"].result
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"micro trace_sorted {kind}: the sorted trace gives other hits")
+    for name, key in micro.oracle_keys(big.bvh, o, d, want):
+      perm = torch.argsort(key, stable=True)
+      got = lines["trace_oracle"][f"oracle[{name}] {kind}"].result
+      check(all(torch.equal(a, b[perm]) for a, b in zip(got, want)),
+            f"micro trace_oracle[{name}] {kind}: the sorted rays give other hits")
+  for name in micro.SCENES:
+    k3, k9 = (lines["trace_brute"][f"{name} {k} closest"].result for k in ("brute2", "woop"))
+    o3, o9 = (lines["trace_brute"][f"{name} {k} anyhit"].result for k in ("brute2", "woop"))
+    same = k3.tri == k9.tri
+    both = same & k3.found
+    rel = ((k9.t - k3.t).abs() / k3.t.abs())[both]
+    max_rel = rel.max().item() if rel.numel() else 0.0
+    close = (rel <= 1e-4).float().mean().item() if rel.numel() else 1.0
+    share = same.float().mean().item()
+    say("micro", f"trace_brute {name}: K9a vs K3 equal tri {share:.6f} "
+        f"({int((~same).sum())} of {same.numel()} rays differ), largest relative |dt| "
+        f"{max_rel:.3e} where equal ({close:.6f} of them within 1e-4); K9b vs K4 equal "
+        f"{(o3 == o9).float().mean().item():.6f}; hit fraction "
+        f"{k3.found.float().mean().item():.4f}")
+    # two formulations of one test: they part only at edges, ties and
+    # grazing angles, where t = -w_z / q_z divides by a small cosine
+    check(share >= 0.99 and close >= 0.999,
+          f"trace_brute {name}: K9a and K3 disagree (equal tri {share}, t within 1e-4 {close})")
+  return counts["trace_brute"]
+
+
+def woop_matmul_note(dev):
+  """For comparison only (the port never calls it): one FP32 `torch.matmul`
+  of the (R, 8) x (8, 6 x 512) product per 512-triangle chunk, the part of
+  K9a that the TPU kernel hands to its matrix unit, at 2^18 rays, TF32 off."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  ray8 = torch.randn(RAYS, 8, device=dev)
+  chunk = torch.randn(8, 6 * woop_trace.CHUNK, device=dev)
+  out = torch.empty(RAYS, 6 * woop_trace.CHUNK, device=dev)
+  for name, num_t in (("materials", 996), ("bigscene", bigscene.NUM_TRIANGLES)):
+    chunks = -(-num_t // woop_trace.CHUNK)
+
+    def product():
+      for _ in range(chunks):
+        torch.matmul(ray8, chunk, out=out)
+
+    ms = event_ms(product, 3)
+    say("woop_matmul", f"{name}: {chunks} x FP32 matmul (2^18, 8) x (8, {6 * woop_trace.CHUNK}) "
+        f"{ms:.4f} ms (TF32 off)")
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -595,28 +736,44 @@ def main() -> int:
   cornell_512 = cornell_scene((512, 512), 1023, dev)
   materials_512 = materials_scene((512, 512), dev)
   bigscene_512 = bigscene_scene((512, 512), dev)
+  caustics_scene = caustics.build_caustics_scene((512, 512)).build(device=dev)[0]
   cornell_geo = (list(cornell_512[0][:3]), None)
   mat_geo = (list(materials_512[0][:3]), None)
   big_geo = (list(bigscene_512[0][:3]), bigscene_512[0].bvh)
-  small = [("cornell", cornell_geo, None),
-           ("soup128", (tri_soup(rng, brute_trace.MAX_TRIS, dev), None), None)]
-  pair_tile = [("materials", mat_geo, ROOM),
-               ("soup4096", (tri_soup(rng, brute2_trace.MAX_TRIS, dev), None), None),
-               ("soup129", (tri_soup(rng, brute2_trace.MIN_TRIS, dev), None), None)]
+  caustics_geo = (list(caustics_scene[:3]), None)
+  # cases: (label, geometry, origin box, rays); the dispatch thresholds are
+  # 128 (K1/K2) and 4096 (K3/K4) triangles, the kernels take any count
+  small = [("cornell", cornell_geo, None, RAYS),
+           ("soup128", (tri_soup(rng, 128, dev), None), None, RAYS),
+           ("materials", mat_geo, ROOM, FEW_RAYS),
+           ("bigscene", big_geo, ROOM, FEW_RAYS)]
+  soup4096 = ("soup4096", (tri_soup(rng, 4096, dev), None), None, RAYS)
+  soup129 = ("soup129", (tri_soup(rng, 129, dev), None), None, RAYS)
+  pair_tile = [("materials", mat_geo, ROOM, RAYS), soup4096, soup129,
+               ("cornell", cornell_geo, None, RAYS), ("bigscene", big_geo, ROOM, RAYS)]
+  woop = [("materials", mat_geo, ROOM, RAYS), ("caustics", caustics_geo, ROOM, RAYS),
+          ("bigscene", big_geo, ROOM, RAYS), soup4096, soup129]
   soup = soup_tree(rng, 5000, dev)
-  bvh_fat = [("bigscene", big_geo, ROOM), ("soup5000", soup, None)]
-  bvh_node = [("bigscene", (big_geo[0], scene_types.without_fat_rows(big_geo[1])), ROOM),
-              ("soup5000", (soup[0], scene_types.without_fat_rows(soup[1])), None)]
+  bvh_fat = [("bigscene", big_geo, ROOM, RAYS), ("soup5000", soup, None, RAYS)]
+  bvh_node = [("bigscene", (big_geo[0], scene_types.without_fat_rows(big_geo[1])), ROOM, RAYS),
+              ("soup5000", (soup[0], scene_types.without_fat_rows(soup[1])), None, RAYS)]
+  # K1, K3 and K9a timed also at bigscene's 15,396 triangles, at the micro
+  # groups' ray counts (K1: `trace`, 2^16; K3 and K9a: `trace_brute`, 2^18)
+  big_k1 = ("bigscene", big_geo, ROOM, 1 << 16)
   results = {
-      "intersect": kernel_phase("intersect", dev, rng, small, small[0]),
-      "occluded": kernel_phase("occluded", dev, rng, small, small[0]),
-      "intersect_brute2": kernel_phase("intersect_brute2", dev, rng, pair_tile, pair_tile[0]),
-      "occluded_brute2": kernel_phase("occluded_brute2", dev, rng, pair_tile, pair_tile[0]),
-      "intersect_bvh_fat": kernel_phase("intersect_bvh_fat", dev, rng, bvh_fat, bvh_fat[0]),
-      "occluded_bvh_fat": kernel_phase("occluded_bvh_fat", dev, rng, bvh_fat, bvh_fat[0]),
-      "intersect_bvh": kernel_phase("intersect_bvh", dev, rng, bvh_node, bvh_node[0]),
-      "occluded_bvh": kernel_phase("occluded_bvh", dev, rng, bvh_node, bvh_node[0]),
+      "intersect": kernel_phase("intersect", dev, rng, small, [small[0], big_k1]),
+      "occluded": kernel_phase("occluded", dev, rng, small, small[:1]),
+      "intersect_brute2": kernel_phase("intersect_brute2", dev, rng, pair_tile,
+                                       [pair_tile[0], pair_tile[-1]]),
+      "occluded_brute2": kernel_phase("occluded_brute2", dev, rng, pair_tile, pair_tile[:1]),
+      "intersect_bvh_fat": kernel_phase("intersect_bvh_fat", dev, rng, bvh_fat, bvh_fat[:1]),
+      "occluded_bvh_fat": kernel_phase("occluded_bvh_fat", dev, rng, bvh_fat, bvh_fat[:1]),
+      "intersect_bvh": kernel_phase("intersect_bvh", dev, rng, bvh_node, bvh_node[:1]),
+      "occluded_bvh": kernel_phase("occluded_bvh", dev, rng, bvh_node, bvh_node[:1]),
+      "intersect_woop": kernel_phase("intersect_woop", dev, rng, woop, [woop[0], woop[2]]),
+      "occluded_woop": kernel_phase("occluded_woop", dev, rng, woop, woop[:1]),
   }
+  woop_matmul_note(dev)
 
   counts = main_path_cornell(*cornell_512, dev)
   profile_step_mix("cornell 512x512", *cornell_512, dev)
@@ -625,6 +782,7 @@ def main() -> int:
   counts_big = main_path_bigscene(*bigscene_512, dev)
   profile_step_mix("bigscene 512x512", *bigscene_512, dev)
   counts_node = end_to_end()
+  counts_micro = micro_phase(dev)
 
   launches = {"intersect": counts["intersect"], "occluded": counts["occluded"],
               "intersect_brute2": counts_mat["intersect_brute2"],
@@ -632,7 +790,9 @@ def main() -> int:
               "intersect_bvh_fat": counts_big["intersect_bvh_fat"],
               "occluded_bvh_fat": counts_big["occluded_bvh_fat"],
               "intersect_bvh": counts_node["intersect_bvh"],
-              "occluded_bvh": counts_node["occluded_bvh"]}
+              "occluded_bvh": counts_node["occluded_bvh"],
+              "intersect_woop": counts_micro["intersect_woop"],
+              "occluded_woop": counts_micro["occluded_woop"]}
   kernels = []
   for name, r in results.items():
     _, _, _, replaces, source = KERNELS[name]

@@ -1,5 +1,7 @@
-// Pair-tile ray/triangle intersection for scenes of 129 to 4096 triangles:
-// closest hit (K3) and any hit (K4), for NVIDIA Hopper (sm_90a).
+// Pair-tile ray/triangle intersection for any triangle count: closest hit
+// (K3) and any hit (K4), for NVIDIA Hopper (sm_90a). The trace dispatch
+// sends 129 to 4096 triangles here (ops/trace.py); the kernels, like the
+// TPU kernels they replace, take any count.
 //
 // Replaces the TPU kernels of etx_tracer_tpu/ops/pallas_trace.py:
 //   K3 intersect_brute2_pallas (`_kernel_brute2`)        -> brute2_kernel<false>
@@ -9,7 +11,7 @@
 // VMEM and evaluate (256 rays) x (512 triangles) pair tiles on the vector
 // unit. Here one thread owns one ray and walks the table in chunks of 512
 // triangles (9 floats each, 18 KB) that the block stages in shared memory:
-// 4096 triangles would not fit the 48 KB of static shared memory, and a
+// a larger table would not fit the 48 KB of static shared memory, and a
 // chunk read by every thread of a warp at the same address is a broadcast.
 //
 // What bounds it: arithmetic. A ray-triangle pair costs 48 FP32 adds,
@@ -43,7 +45,6 @@ namespace {
 constexpr int kChunk = 512;    // triangles staged per pass
 constexpr int kRowWidth = 9;   // v0(3) e1(3) e2(3)
 constexpr int kThreads = 256;
-constexpr int kMaxTris = 4096;
 constexpr float kMtEps = 1e-9f;
 
 template <bool kAnyHit>
@@ -165,7 +166,7 @@ int etx_brute2_intersect(const float* v0, const float* e1, const float* e2,
                          const float* t_min, const float* t_max, int num_r,
                          float* t_out, int* tri_out, float* u_out, float* v_out,
                          void* stream) {
-  if (num_t > kMaxTris || num_t < 0 || num_r <= 0) return (int)cudaErrorInvalidValue;
+  if (num_t < 0 || num_r <= 0) return (int)cudaErrorInvalidValue;
   brute2_kernel<false><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
       v0, e1, e2, mask, num_t, o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r,
       t_out, tri_out, u_out, v_out, nullptr);
@@ -180,7 +181,7 @@ int etx_brute2_occluded(const float* v0, const float* e1, const float* e2,
                         const float* d, int d_ray, int d_comp,
                         const float* t_min, const float* t_max, int num_r,
                         unsigned char* occ_out, void* stream) {
-  if (num_t > kMaxTris || num_t < 0 || num_r <= 0) return (int)cudaErrorInvalidValue;
+  if (num_t < 0 || num_r <= 0) return (int)cudaErrorInvalidValue;
   brute2_kernel<true><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
       v0, e1, e2, mask, num_t, o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r,
       nullptr, nullptr, nullptr, nullptr, occ_out);

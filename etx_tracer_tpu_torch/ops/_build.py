@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source of the package, by library name
 SOURCES = {"brute_trace": "brute_trace.cu", "brute2_trace": "brute2_trace.cu",
-           "bvh_trace": "bvh_trace.cu"}
+           "bvh_trace": "bvh_trace.cu", "woop_trace": "woop_trace.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""Pair-tile ray/triangle intersection for scenes of 129 to 4096 triangles.
+"""Pair-tile ray/triangle intersection, for any triangle count.
 
 Two functions, each a CUDA kernel (`csrc/brute2_trace.cu`) with a plain
 PyTorch version of the same signature beside it:
@@ -20,6 +20,10 @@ holds at most 2^22 pairs, so no temporary grows past 16 MB); the CPU tests
 hold them against the TPU kernel's own body run in interpret mode, and
 `chip_smoke.py` holds each kernel against them on the card.
 
+The trace dispatch (`ops/trace.py`) sends scenes of 129 to 4096 triangles
+here, as the JAX package does; the kernels, like the TPU kernels, take any
+count (the micro-benchmark runs K3/K4 on bigscene's 15,396 triangles).
+
 `launches` counts kernel launches (never plain calls), so a run can show
 that its main path went through the kernels.
 """
@@ -33,8 +37,6 @@ import torch
 from etx_tracer_tpu_torch.ops import _build, brute_trace
 from etx_tracer_tpu_torch.ops.brute_trace import Hit
 
-MIN_TRIS = brute_trace.MAX_TRIS + 1
-MAX_TRIS = 4096
 CHUNK = 512                 # triangles per chunk, as the TPU kernel's _B2_TC
 _TILE_PAIRS = 1 << 22       # ray-triangle pairs per plain-version tile
 _MT_EPS = 1e-9
@@ -160,7 +162,7 @@ def _library():
 
 def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask):
   return brute_trace._check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask,
-                            max_tris=MAX_TRIS, what="pair-tile")
+                            what="pair-tile")
 
 
 def _raise_on(rc: int, what: str):

@@ -1,4 +1,4 @@
-"""Brute-force ray/triangle intersection for scenes of at most 128 triangles.
+"""Brute-force ray/triangle intersection, for any triangle count.
 
 Two functions, each a CUDA kernel (`csrc/brute_trace.cu`) with a plain
 PyTorch version of the same signature beside it:
@@ -13,6 +13,10 @@ launches the kernel or raises. The plain versions mirror
 by expression; the CPU tests hold them against the JAX package and
 `chip_smoke.py` holds each kernel against them on the card.
 
+The trace dispatch (`ops/trace.py`) sends scenes of at most 128 triangles
+here, as the JAX package does; the kernels, like the TPU kernels, take any
+count (the micro-benchmark runs K1 on bigscene's 15,396 triangles).
+
 `launches` counts kernel launches (never plain calls), so a run can show
 that its main path went through the kernels.
 """
@@ -26,7 +30,6 @@ import torch
 
 from etx_tracer_tpu_torch.ops import _build
 
-MAX_TRIS = 128
 _MT_EPS = 1e-9
 
 launches = {"intersect": 0, "occluded": 0}
@@ -135,15 +138,12 @@ def _library():
   return _lib
 
 
-def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, max_tris=MAX_TRIS,
-           what="brute-force"):
+def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, what="brute-force"):
   """Validate what the kernels take; returns (num_t, num_r)."""
   dev = o.device
   if dev.type != "cuda":
     raise ValueError(f"the {what} kernels take CUDA tensors, got {dev}")
   num_t, num_r = tri_v0.shape[0], o.shape[0]
-  if num_t > max_tris:
-    raise ValueError(f"{num_t} triangles: the {what} kernels take at most {max_tris}")
   for name, x, shape in (("tri_v0", tri_v0, (num_t, 3)), ("tri_e1", tri_e1, (num_t, 3)),
                          ("tri_e2", tri_e2, (num_t, 3)), ("o", o, (num_r, 3)),
                          ("d", d, (num_r, 3)), ("t_min", t_min, (num_r,)),

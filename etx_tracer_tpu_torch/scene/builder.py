@@ -200,6 +200,13 @@ class SceneBuilder:
 
     tan, btn = _tangents(nrm, uv, idx, pos)
 
+    # bounding sphere
+    bb_min = pos.min(axis=0)
+    bb_max = pos.max(axis=0)
+    center = (bb_min + bb_max) * 0.5
+    radius = float(np.linalg.norm(pos - center, axis=-1).max())
+    radius = max(radius, 1e-3)
+
     # ---- area emitter instancing: one instance per emissive triangle ----
     mat_emitter_profile: dict[int, int] = {}
     profiles: list[int] = []  # emission spectrum of each area profile
@@ -299,6 +306,8 @@ class SceneBuilder:
         "emitters.total_weight": np.float32(total_w),
         "spec_values": np.stack([s.values for s in self.spectra]).astype(np.float32),
         "spec_rgb": np.stack([s.integrated_rgb() for s in self.spectra]).astype(np.float32),
+        "bsphere_center": center.astype(np.float32),
+        "bsphere_radius": np.float32(radius),
     }
     tree = bvh_build.build_bvh(v0, e1, e2)
     arrays.update({f"bvh.{k}": v for k, v in tree.items() if v is not None})

@@ -98,6 +98,8 @@ class DeviceScene(NamedTuple):
   spec_values: torch.Tensor  # (S,441) spectrum bank on the 1 nm grid
   spec_rgb: torch.Tensor    # (S,3) spectrum bank rows as RGB
   camera: Camera
+  bsphere_center: torch.Tensor  # (3,) centre of the vertices' bounding box
+  bsphere_radius: torch.Tensor  # () farthest vertex from it (at least 1e-3)
   bvh: Optional[BVH] = None
   spec_at_wl: Optional[tuple] = None
 

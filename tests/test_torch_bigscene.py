@@ -52,7 +52,7 @@ from etx_tracer_tpu.ops import trace as jtrace
 from etx_tracer_tpu.scene import types as jtypes
 from etx_tracer_tpu_torch import scene_bridge
 from etx_tracer_tpu_torch.models import path_tracing as ppt
-from etx_tracer_tpu_torch.ops import bvh_build, bvh_trace
+from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace, bvh_build, bvh_trace, woop_trace
 from etx_tracer_tpu_torch.render import film as pfilm
 from etx_tracer_tpu_torch.scene import bigscene, materials
 from etx_tracer_tpu_torch.scene import types as ptypes
@@ -315,6 +315,36 @@ def test_bvh_plain_matches_jax_cpu_route_on_bigscene(monkeypatch, port_scene, ja
     np.testing.assert_allclose(got.t.numpy()[f], np.asarray(ref.t)[f], rtol=T_RTOL, atol=T_ATOL)
     assert not ((occ != rocc) & ~grazing).any()
     np.testing.assert_array_equal(occ, gtri >= 0)
+
+
+def test_dense_kernels_at_any_count_agree_with_the_bvh_on_bigscene(port_scene):
+  """K1-K4 and K9a/K9b take any triangle count, as the TPU kernels do: on
+  bigscene's 15,396 triangles their plain versions give the BVH walk's
+  hits. K1 shares K5's triangle test, so its t is K5's bit for bit; the
+  pair-tile and Woop forms agree wherever no hit ties and no edge is grazed."""
+  scene = port_scene[0]
+  v0, e1, e2 = (x.numpy() for x in scene[:3])
+  rng = np.random.default_rng(46)
+  o, d, t_min, t_max = _room_rays(rng, v0, e2, 512)
+  rays = _torch(o, d, t_min, t_max)
+  tris = scene[:3]
+  want = bvh_trace.intersect_fat_plain(scene.bvh, *rays)
+  want_occ = bvh_trace.occluded_fat_plain(scene.bvh, *rays)
+  tie, grazing = _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, np.ones(v0.shape[0], bool))
+  clean = ~tie & ~grazing
+  assert clean.mean() > 0.8
+  k1 = brute_trace.intersect_plain(*tris, *rays)
+  np.testing.assert_array_equal(k1.t.numpy(), want.t.numpy())
+  np.testing.assert_array_equal(k1.tri.numpy()[~tie], want.tri.numpy()[~tie])
+  assert torch.equal(brute_trace.occluded_plain(*tris, *rays), want_occ)
+  for mod in (brute2_trace, woop_trace):
+    got = mod.intersect_plain(*tris, *rays)
+    np.testing.assert_array_equal(got.tri.numpy()[clean], want.tri.numpy()[clean])
+    f = clean & (want.tri.numpy() >= 0)
+    assert f.mean() > 0.5
+    np.testing.assert_allclose(got.t.numpy()[f], want.t.numpy()[f], rtol=T_RTOL, atol=T_ATOL)
+    occ = mod.occluded_plain(*tris, *rays).numpy()
+    assert not ((occ != want_occ.numpy()) & ~grazing).any()
 
 
 # ------------------------------------------------------- scene and render

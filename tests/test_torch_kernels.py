@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from etx_tracer_tpu_torch.models import path_tracing
+from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
+from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film
 from etx_tracer_tpu_torch.scene import bigscene, cornell, materials
 from etx_tracer_tpu_torch.scene import types as scene_types
@@ -60,7 +62,8 @@ def test_library_path_follows_source_and_flags(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_t,masked", [(36, False), (36, True), (128, False), (1, False)])
+@pytest.mark.parametrize("num_t,masked", [(36, False), (36, True), (128, False), (1, False),
+                                          (600, True), (1100, False)])
 def test_intersect_kernel_matches_plain(cuda, num_t, masked):
   rng = np.random.default_rng(num_t + masked)
   args = _case(rng, num_t, 70001, cuda)
@@ -76,7 +79,7 @@ def test_intersect_kernel_matches_plain(cuda, num_t, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_t,masked", [(36, False), (128, True)])
+@pytest.mark.parametrize("num_t,masked", [(36, False), (128, True), (1100, True)])
 def test_occluded_kernel_matches_plain(cuda, num_t, masked):
   rng = np.random.default_rng(100 + num_t)
   args = _case(rng, num_t, 70001, cuda)
@@ -106,8 +109,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     brute_trace.intersect(v0, e1, e2, o.double(), d, t_min, t_max)
   with pytest.raises(ValueError, match="on"):
     brute_trace.occluded(v0.cpu(), e1, e2, o, d, t_min, t_max)
-  with pytest.raises(ValueError, match="at most 128"):
-    brute_trace.intersect(*_case(rng, 129, 256, cuda))
+  # any triangle count: 129 is above the dispatch's 128, not the kernel's limit
+  args = _case(rng, 129, 256, cuda)
+  assert all(torch.equal(a, b) for a, b in zip(brute_trace.intersect(*args),
+                                                 brute_trace.intersect_plain(*args)))
   with pytest.raises(ValueError, match="shape"):
     brute_trace.occluded(v0, e1, e2, o, d, t_min[:-1], t_max)
 
@@ -137,7 +142,8 @@ def _materials_case(rng, num_r, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_t,masked", [(129, False), (996, True), (4096, False)])
+@pytest.mark.parametrize("num_t,masked", [(129, False), (996, True), (4096, False), (36, True),
+                                          (5000, False)])
 def test_pair_tile_kernels_match_plain(cuda, num_t, masked):
   rng = np.random.default_rng(200 + num_t)
   args = _materials_case(rng, 70001, cuda) if num_t == 996 else _case(rng, num_t, 70001, cuda)
@@ -157,8 +163,10 @@ def test_pair_tile_kernels_match_plain(cuda, num_t, masked):
 @pytest.mark.cuda
 def test_pair_tile_kernels_reject_what_they_do_not_take(cuda):
   rng = np.random.default_rng(9)
-  with pytest.raises(ValueError, match="at most 4096"):
-    brute2_trace.intersect(*_case(rng, 4097, 256, cuda))
+  # any triangle count: 4097 is above the dispatch's 4096, not the kernel's limit
+  args = _case(rng, 4097, 256, cuda)
+  assert all(torch.equal(a, b) for a, b in zip(brute2_trace.intersect(*args),
+                                                 brute2_trace.intersect_plain(*args)))
   v0, e1, e2, o, d, t_min, t_max = _case(rng, 200, 256, cuda)
   with pytest.raises(ValueError, match="contiguous"):
     brute2_trace.occluded(v0, e1, e2, o, d, t_min, torch.stack([t_max, t_max], 1)[:, 0])
@@ -265,3 +273,57 @@ def test_bigscene_render_goes_through_the_bvh_kernels_and_matches_cpu(cuda, form
   outliers = (np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)).any(axis=-1)
   assert outliers.mean() <= 0.02
   assert abs(card.mean() - cpu.mean()) <= 0.005 * cpu.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_t,masked", [(129, False), (996, True), (1060, False),
+                                          (4096, True), (5000, False)])
+def test_woop_kernels_match_plain(cuda, num_t, masked):
+  rng = np.random.default_rng(300 + num_t)
+  args = _materials_case(rng, 70001, cuda) if num_t == 996 else _case(rng, num_t, 70001, cuda)
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  before = dict(woop_trace.launches)
+  hit = woop_trace.intersect(*args, tri_mask=mask)
+  occ = woop_trace.occluded(*args, tri_mask=mask)
+  assert woop_trace.launches == {k: n + 1 for k, n in before.items()}
+  ref = woop_trace.intersect_plain(*args, tri_mask=mask)
+  for got, want in zip(hit, ref):
+    assert got.dtype == want.dtype and torch.equal(got, want)
+  assert torch.equal(occ, woop_trace.occluded_plain(*args, tri_mask=mask))
+  assert torch.equal(occ, hit.found)
+  assert 0.05 < hit.found.float().mean().item() < 0.99
+
+
+@pytest.mark.cuda
+def test_woop_kernels_take_strided_rays_and_reject_what_they_do_not_take(cuda):
+  rng = np.random.default_rng(11)
+  v0, e1, e2, o, d, t_min, t_max = _case(rng, 700, 4096, cuda)
+  wide = torch.cat([o, d], dim=1)
+  hit = woop_trace.intersect(v0, e1, e2, wide[:, :3], wide[:, 3:], t_min, t_max)
+  ref = woop_trace.intersect(v0, e1, e2, o, d, t_min, t_max)
+  assert all(torch.equal(a, b) for a, b in zip(hit, ref))
+  with pytest.raises(ValueError, match="float32"):
+    woop_trace.intersect(v0, e1, e2, o.double(), d, t_min, t_max)
+  with pytest.raises(ValueError, match="shape"):
+    woop_trace.occluded(v0, e1, e2, o, d, t_min[:-1], t_max)
+  with pytest.raises(ValueError, match="tri_mask"):
+    woop_trace.occluded(v0, e1, e2, o, d, t_min, t_max, tri_mask=torch.ones(700, device=cuda))
+
+
+@pytest.mark.cuda
+def test_micro_trace_brute_runs_the_dense_kernels_on_the_card(cuda):
+  for counts in (brute2_trace.launches, woop_trace.launches):
+    for key in counts:
+      counts[key] = 0
+  lines = micro.run("trace_brute", cuda, 4096)
+  assert len(lines) == 12 and all(x.seconds > 0.0 for x in lines)
+  # a warm chain and the timed ones, of n_iter steps each, on three scenes
+  n_iter, reps = micro.CHAIN["cuda"]
+  calls = 3 * n_iter * (1 + reps)
+  assert brute2_trace.launches == {"intersect": calls, "occluded": calls}
+  assert woop_trace.launches == {"intersect": calls, "occluded": calls}
+  by = {x.label: x.result for x in lines}
+  for name in micro.SCENES:
+    k3, k9 = by[f"{name} brute2 closest"], by[f"{name} woop closest"]
+    assert (k3.tri == k9.tri).float().mean().item() > 0.99
+    assert torch.equal(by[f"{name} woop anyhit"], k9.found)

@@ -442,6 +442,15 @@ assert bool(hit.found.all())
 slim = big._replace(bvh=types.without_fat_rows(big.bvh))
 assert torch.equal(trace.trace_occluded(slim, o, d, t0, t1), hit.found)
 assert "etx_tracer_tpu_torch.ops.bvh_trace" in sys.modules
+from etx_tracer_tpu_torch.benchmarks import micro
+from etx_tracer_tpu_torch.ops import woop_trace
+from etx_tracer_tpu_torch.scene import caustics
+cs, _ = caustics.build_caustics_scene((8, 8)).build(device="cpu")
+assert cs.tri_v0.shape == (caustics.NUM_TRIANGLES, 3) and cs.bsphere_radius.shape == ()
+woop = woop_trace.intersect(cs.tri_v0, cs.tri_e1, cs.tri_e2, o, d, t0, t1)
+assert woop.t.shape == (4,) and woop_trace.launches == {"intersect": 0, "occluded": 0}
+lines = micro.run("trace_sorted", "cpu", 64)
+assert [x.label for x in lines] == ["fat+sort bounce", "fat+sort random"]
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")

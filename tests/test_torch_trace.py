@@ -3,7 +3,9 @@
 The plain versions of the K1 (closest hit) and K2 (any hit) kernels in
 `etx_tracer_tpu_torch/ops/brute_trace.py` are held against the JAX package's
 CPU route, `trace.intersect_scan` and `trace.trace_occluded`, on the same
-numpy inputs. The plain versions of the K3 and K4 pair-tile kernels in
+numpy inputs, and, above the 128-triangle unroll limit, against the TPU
+kernels' bodies `pallas_trace._kernel` and `_kernel_anyhit` (their
+`fori_loop` branch) in interpret mode. The plain versions of the K3 and K4 pair-tile kernels in
 `ops/brute2_trace.py` are held against the TPU kernels' own bodies,
 `pallas_trace._kernel_brute2` and `_kernel_brute2_anyhit`, run through
 `pl.pallas_call(interpret=True)`, and against `intersect_scan`; the
@@ -191,7 +193,7 @@ def test_dispatch_above_128_triangles_raises(query):
   the CPU, launching no kernel); a scene without a BVH raises rather than
   fall back to a brute-force loop."""
   rng = np.random.default_rng(7)
-  v0, e1, e2 = _tris(rng, brute2_trace.MAX_TRIS + 1)
+  v0, e1, e2 = _tris(rng, ptrace._BVH_PALLAS_MIN_TRIS + 1)
   o, d, t_min, t_max = _torch(*_rays(rng, v0, e2, 64))
   tree = bvh_build.build_bvh(v0, e1, e2)
   bvh = ptypes.bvh_from_arrays(bvh_build.kernel_tables(
@@ -246,7 +248,8 @@ def _interpret_brute2(v0, e1, e2, o, d, t_min, t_max, mask):
 
 
 @pytest.mark.parametrize("num_t,masked,seed", [(600, False, 20), (600, True, 21),
-                                               (1100, False, 22), (1100, True, 23)])
+                                               (1100, False, 22), (1100, True, 23),
+                                               (100, False, 25), (5000, True, 26)])
 def test_brute2_plain_matches_tpu_kernel_body(num_t, masked, seed):
   rng = np.random.default_rng(seed)
   v0, e1, e2 = _tris(rng, num_t)
@@ -304,7 +307,7 @@ def test_brute2_plain_matches_intersect_scan_on_the_materials_scene():
   np.testing.assert_array_equal(occ, gtri >= 0)
 
 
-@pytest.mark.parametrize("num_t", [brute_trace.MAX_TRIS + 1, 996, brute2_trace.MAX_TRIS])
+@pytest.mark.parametrize("num_t", [ptrace._UNROLL_LIMIT + 1, 996, ptrace._BVH_PALLAS_MIN_TRIS])
 def test_dispatch_takes_the_pair_tile_plain_versions_on_cpu(num_t):
   rng = np.random.default_rng(num_t)
   v0, e1, e2 = _tris(rng, num_t)
@@ -319,3 +322,120 @@ def test_dispatch_takes_the_pair_tile_plain_versions_on_cpu(num_t):
   assert all(torch.equal(a, b) for a, b in zip(hit, ref))
   assert torch.equal(occ, ref.found)
   assert (brute_trace.launches, brute2_trace.launches) == before
+
+
+# ------------------------------------------- K1 / K2 above the unroll limit
+
+
+def _interpret_brute(v0, e1, e2, o, d, t_min, t_max, mask):
+  """The TPU kernels `_kernel` and `_kernel_anyhit` on the CPU through
+  pallas_call in interpret mode, with `intersect_pallas`'s own table, ray
+  planes and grid (BlockSpecs without a memory space). Above 128 triangles
+  their triangle loop is a `fori_loop`."""
+  num_t, num_r = v0.shape[0], o.shape[0]
+  m = np.ones(num_t, np.float32) if mask is None else mask.astype(np.float32)
+  tab = np.concatenate([v0, e1, e2, m[:, None], np.zeros((num_t, 6), np.float32)], axis=1)
+  tab = np.concatenate([tab, np.zeros(((-num_t) % jpallas._SUBLANES, 16), np.float32)])
+  tile = jpallas._RB * jpallas._LANES
+  assert num_r % tile == 0
+  g = num_r // jpallas._LANES
+  planes = [jnp.asarray(np.ascontiguousarray(x).reshape(g, jpallas._LANES))
+            for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_min, t_max)]
+  ray_spec = pl.BlockSpec((jpallas._RB, jpallas._LANES), lambda i: (i, 0))
+  tri_spec = pl.BlockSpec(tab.shape, lambda i: (0, 0))
+  grid = (g // jpallas._RB,)
+
+  def plane(dt):
+    return jax.ShapeDtypeStruct((g, jpallas._LANES), dt)
+
+  hit = pl.pallas_call(
+      jpallas._kernel, grid=grid, in_specs=[tri_spec] + [ray_spec] * 8,
+      out_specs=[ray_spec] * 4, interpret=True,
+      out_shape=[plane(jnp.float32), plane(jnp.int32), plane(jnp.float32), plane(jnp.float32)],
+  )(jnp.asarray(tab), *planes)
+  occ = pl.pallas_call(
+      jpallas._kernel_anyhit, grid=grid, in_specs=[tri_spec] + [ray_spec] * 8,
+      out_specs=ray_spec, out_shape=plane(jnp.float32), interpret=True,
+  )(jnp.asarray(tab), *planes)
+  return [np.asarray(x).reshape(num_r) for x in hit], np.asarray(occ).reshape(num_r) > 0.5
+
+
+@pytest.mark.parametrize("masked,seed", [(False, 27), (True, 28)])
+def test_brute_plain_matches_tpu_kernel_body_above_the_unroll_limit(masked, seed):
+  """K1/K2's plain versions at 300 triangles against the TPU kernels'
+  `fori_loop` branch."""
+  rng = np.random.default_rng(seed)
+  num_t = 300
+  v0, e1, e2 = _tris(rng, num_t)
+  o, d, t_min, t_max = _rays(rng, v0, e2, jpallas._RB * jpallas._LANES)
+  mask = rng.uniform(size=num_t) > 0.3 if masked else None
+  (rt, rtri, ru, rv), rocc = _interpret_brute(v0, e1, e2, o, d, t_min, t_max, mask)
+  tmask = None if mask is None else torch.from_numpy(mask)
+  got = brute_trace.intersect_plain(*_torch(v0, e1, e2, o, d, t_min, t_max), tri_mask=tmask)
+  occ = brute_trace.occluded_plain(*_torch(v0, e1, e2, o, d, t_min, t_max),
+                                   tri_mask=tmask).numpy()
+  gtri = got.tri.numpy()
+  grazing = _grazing(v0, e1, e2, o, d, t_min, t_max,
+                     np.ones(num_t, bool) if mask is None else mask)
+  assert not ((gtri != rtri) & ~grazing).any()
+  assert not ((occ != rocc) & ~grazing).any()
+  assert (gtri == rtri).mean() > 0.98
+  f = (rtri >= 0) & (gtri == rtri)
+  assert f.sum() >= 200
+  np.testing.assert_allclose(got.t.numpy()[f], rt[f], rtol=T_RTOL, atol=T_ATOL)
+  np.testing.assert_allclose(got.u.numpy()[f], ru[f], atol=UV_ATOL)
+  np.testing.assert_allclose(got.v.numpy()[f], rv[f], atol=UV_ATOL)
+  assert np.all(gtri[t_max <= 0.0] == -1) and not occ[t_max <= 0.0].any()
+  np.testing.assert_array_equal(occ, gtri >= 0)
+
+
+@pytest.mark.parametrize("num_t,route", [(128, "brute"), (129, "pair_tile"),
+                                         (4096, "pair_tile"), (4097, "bvh")])
+def test_dispatch_routes_by_the_jax_thresholds(num_t, route):
+  """The kernels take any triangle count; the dispatch still routes by the
+  JAX package's thresholds: K1/K2 up to 128, K3/K4 up to 4096, K5/K6 (K7/K8
+  without fat rows) beyond."""
+  rng = np.random.default_rng(num_t)
+  v0, e1, e2 = _tris(rng, num_t)
+  tree = bvh_build.build_bvh(v0, e1, e2)
+  bvh = ptypes.bvh_from_arrays(bvh_build.kernel_tables(
+      {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2, **{f"bvh.{k}": v for k, v in tree.items()}}),
+      "cpu")
+  want = {"brute": (brute_trace.intersect, brute_trace.occluded),
+          "pair_tile": (brute2_trace.intersect, brute2_trace.occluded),
+          "bvh": (bvh_trace.intersect_fat, bvh_trace.occluded_fat)}[route]
+  for tree_form in (bvh, ptypes.without_fat_rows(bvh)):
+    scene = types.SimpleNamespace(tri_v0=torch.from_numpy(v0), tri_e1=torch.from_numpy(e1),
+                                  tri_e2=torch.from_numpy(e2), bvh=tree_form)
+    closest, occluded = ptrace._route(scene)
+    if route == "bvh" and tree_form.fat_table is None:
+      want = (bvh_trace.intersect_node, bvh_trace.occluded_node)
+    assert (closest.func, occluded.func) == want
+
+
+def test_ray_sort_keys_and_permutation_equal_jax():
+  """`_ray_sort_keys` gives the JAX package's 30-bit keys (as int64), and
+  the stable sort its permutation, on the same numpy tree."""
+  rng = np.random.default_rng(29)
+  v0, e1, e2 = _tris(rng, 700)
+  tree = bvh_build.build_bvh(v0, e1, e2)
+  bvh = ptypes.bvh_from_arrays(bvh_build.kernel_tables(
+      {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2, **{f"bvh.{k}": v for k, v in tree.items()}}),
+      "cpu")
+  jbvh = types.SimpleNamespace(node_min=jnp.asarray(tree["node_min"]),
+                               node_max=jnp.asarray(tree["node_max"]))
+  o, d, t_min, t_max = _rays(rng, v0, e2, 4096)
+  o[:64] = o[64:128]                                  # equal keys: the order must hold
+  o[128:160] = np.float32([[5.0, -5.0, 0.0]])         # outside the box: clipped
+  want = np.asarray(jtrace._ray_sort_keys(jbvh, jnp.asarray(o), jnp.asarray(d)))
+  got = ptrace._ray_sort_keys(bvh, *_torch(o, d))
+  assert got.dtype == torch.int64 and want.dtype == np.uint32
+  np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+  assert got.max().item() < 1 << 30
+  (jo, jd, jt0, jt1), jinv = jtrace._sorted_for_trace(
+      jbvh, *(jnp.asarray(x) for x in (o, d, t_min, t_max)))
+  (po, pd, pt0, pt1), pinv = ptrace._sorted_for_trace(bvh, *_torch(o, d, t_min, t_max))
+  np.testing.assert_array_equal(pinv.numpy(), np.asarray(jinv))
+  for g, w in ((po, jo), (pd, jd), (pt0, jt0), (pt1, jt1)):
+    np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+  np.testing.assert_array_equal(po[pinv].numpy(), o)
