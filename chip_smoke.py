@@ -16,10 +16,13 @@ Phases, one line each with its elapsed seconds:
      vertices, and rays with t_max = -1. Times each kernel and its plain
      version at 2^18 rays x 36 triangles, and K1's at 2^16 rays x 15,396;
   5. K3 pair-tile closest hit and 6. K4 pair-tile any hit: the same checks
-     on 2^18 rays against the materials scene's 996 triangles, a random
-     4096-triangle soup, a 129-triangle soup (whose one chunk is mostly
-     empty), the Cornell triangles and bigscene's 15,396; timed, with the
-     plain version, at 2^18 rays x 996 triangles, K3 also x 15,396;
+     on 2^18 rays against the materials scene's 996 triangles, random
+     4096- and 4097-triangle soups, a 129-triangle soup, the Cornell
+     triangles and bigscene's 15,396, and on 2^16 of those rays under six
+     lane patterns (every other lane dead, all dead, one live ray per warp,
+     t_max == t_min, t_min = t_max = 0, strided rays); timed, with the plain
+     version, at 2^18 rays x 996 triangles, K3 also x 15,396, with each
+     kernel's blocks per SM and waves;
   7. K5 fat-row BVH closest hit and 8. K6 fat-row any hit, then 9. K7
      plain-node BVH closest hit and 10. K8 plain-node any hit: the same
      checks on 2^18 rays against bigscene's tree (15,396 triangles, origins
@@ -43,7 +46,10 @@ Phases, one line each with its elapsed seconds:
   14. main path, materials: the spectral materials showcase (996 triangles:
      Diffuse, Conductor, Dielectric and Thinfilm) at 512x512, max path
      length 16, a 2^18-lane pool and 8 iterations, counted and profiled the
-     same way;
+     same way; then the closest-hit and shadow rays of bounce 2 of one more
+     iteration, captured as the main path traces them (dead lanes at
+     t_max = 0), with K3 and K4 held against their plain versions and timed
+     on them, beside their live share and bound;
   15. main path, bigscene: twelve icospheres in the Cornell box (15,396
      triangles, Diffuse, RGB) at 512x512, max path length 8, a 2^18-lane
      pool and 8 iterations, traced by K5/K6, counted and profiled the same
@@ -138,6 +144,8 @@ BIGSCENE_ITERATIONS = 8
 # 32x32, 8 spp 0.06316); tests/test_torch_bigscene.py holds that 64x64 mean
 # inside this range, which is 0.06337 +-10%
 BIGSCENE_MEAN = (0.0570, 0.0697)
+# the materials main path's bounce whose rays K3/K4 are held and timed on
+CAPTURE_BOUNCE = 2
 T0 = time.perf_counter()
 
 
@@ -263,10 +271,17 @@ def bigscene_scene(film, dev, fat_rows=True):
   return scene, config
 
 
+def needs_pairs(t_min, t_max):
+  """(R,) bool: the rays that need their pairs tested. A ray that the
+  pair-tile kernels' skip test finds dead (t_max <= 0 < 1e-30 < t_min) has
+  no valid pair and needs none, whichever kernel traces it."""
+  return ~brute2_trace.dead_lanes(t_min, t_max)
+
+
 def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, mask=None) -> int:
-  """Ray-triangle pairs K2's any-hit loop, which stops at the first hit,
-  tests."""
-  live = t_max >= 0.0
+  """Ray-triangle pairs an any-hit loop that stops at the first hit (K2)
+  needs."""
+  live = needs_pairs(t_min, t_max)
   first = torch.full_like(t_max, float(v0.shape[0]))
   for ti in reversed(range(v0.shape[0])):
     if mask is not None and not bool(mask[ti]):
@@ -296,7 +311,7 @@ def first_hit_pairs_chunked(mod, v0, e1, e2, o, d, t_min, t_max) -> int:
       rev = torch.arange(width, 0, -1, device=o.device)   # width - j: the first wins
       at = s + width - (ok * rev).amax(dim=1)             # first valid index
       first = torch.minimum(first, torch.where(ok.any(dim=1), at + 1, num_t))
-    total += int(torch.where(t_max[sl] >= 0.0, first, 0).sum().item())
+    total += int(torch.where(needs_pairs(t_min[sl], t_max[sl]), first, 0).sum().item())
   return total
 
 
@@ -401,7 +416,7 @@ def work(name, geometry, rays):
     ops = stats["boxes"] * FLOPS_PER_BOX + stats["tris"] * FLOPS_PER_BVH_TRI
     nbytes = num_r * (32 + out_bytes) + table_bytes + bvh.prim_tris.shape[0] * 40
     return ops, nbytes, stats
-  live = int((rays[3] >= 0.0).sum().item())
+  live = int(needs_pairs(rays[2], rays[3]).sum().item())
   t_tri = tris[0].shape[0]
   if entry == "intersect":
     pairs = live * t_tri
@@ -413,25 +428,68 @@ def work(name, geometry, rays):
   return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs}
 
 
+def lane_variants(rays):
+  """The first 2^16 of `rays` under each lane pattern the pair-tile kernels
+  must take: dead lanes (t_max = 0 or -0, which they skip) among live ones,
+  intervals that are not empty, strided rays."""
+  o, d, t_min, t_max = (x[:FEW_RAYS] for x in rays)
+  every_other = t_max.clone()
+  every_other[::2] = 0.0
+  one_per_warp = torch.full_like(t_max, -0.0)
+  one_per_warp[::32] = t_max[::32]
+  zeros = torch.zeros_like(t_min)
+  wide = torch.cat([o, d], dim=1)
+  return {"every other lane dead": (o, d, t_min, every_other),
+          "all dead": (o, d, t_min, torch.zeros_like(t_max)),
+          "one live ray per warp": (o, d, t_min, one_per_warp),
+          "t_max == t_min": (o, d, t_min, t_min.clone()),
+          "t_min = t_max = 0": (o, d, zeros, zeros.clone()),
+          "strided": (wide[:, :3], wide[:, 3:], t_min, t_max)}
+
+
+def compare(name, geometry, rays, mask):
+  """(max abs error, hit fraction) of the kernel against its plain version."""
+  if name in CLOSEST:
+    return compare_intersect(name, geometry, rays, mask)
+  return 0.0, compare_occluded(name, geometry, rays, mask)
+
+
+def occupancy_note(name, num_t, num_r):
+  """Blocks per SM and waves of a pair-tile kernel for this shape."""
+  blocks = brute2_trace.occupancy(num_t, name not in CLOSEST)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  grid = -(-num_r // brute2_trace.TILE_RAYS)
+  return (f"{blocks} blocks of {brute2_trace.TILE_RAYS} threads per SM, {grid} blocks in "
+          f"{grid / (blocks * sms):.2f} waves of {blocks * sms}")
+
+
 def kernel_phase(name, dev, rng, cases, timed):
   """Hold one kernel against its plain version on every case (with and
-  without masked rows), then time both on each case of `timed`; the first
-  timed case is the one the `kernels` line reports. A case is (label,
-  (tris, bvh), origin box or None, rays)."""
+  without masked rows; a pair-tile kernel also under each lane pattern of
+  `lane_variants`), then time both on each case of `timed`; the first timed
+  case is the one the `kernels` line reports. A case is (label, (tris, bvh),
+  origin box or None, rays)."""
   kname = KERNELS[name][2]
+  pair_tile = KERNELS[name][0] is brute2_trace
   err = 0.0
   for label, geometry, inside, num_r in cases:
     tris = geometry[0]
     rays = test_rays(rng, *tris, num_r, dev, inside)
     masks = (None, torch.from_numpy(rng.uniform(size=tris[0].shape[0]) > 0.25).to(dev))
     for mask in masks:
-      if name in CLOSEST:
-        e, frac = compare_intersect(name, geometry, rays, mask)
-        err = max(err, e)
-      else:
-        frac = compare_occluded(name, geometry, rays, mask)
+      e, frac = compare(name, geometry, rays, mask)
+      err = max(err, e)
       say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
+      if not pair_tile:
+        continue
+      fracs = []
+      for variant, lanes in lane_variants(rays).items():
+        e, frac = compare(name, geometry, lanes, mask)
+        err = max(err, e)
+        fracs.append(f"{variant} {frac:.4f}")
+      say(name, f"{label} masked={mask is not None} {FEW_RAYS} rays under each lane "
+          f"pattern match the plain version; hit fraction " + ", ".join(fracs))
 
   rows = []
   for label, geometry, inside, num_r in timed:
@@ -446,6 +504,8 @@ def kernel_phase(name, dev, rng, cases, timed):
     say(name, f"{num_r} rays x {geometry[0][0].shape[0]} tris ({label}): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations "
         f"from {counted}, {nbytes} bytes)")
+    if pair_tile:
+      say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
   return {"max_abs_err": err, **rows[0]}
 
@@ -534,6 +594,57 @@ def main_path_bigscene(scene, config, dev):
     check(counts[key] > 0, f"the bigscene main path never launched the {key} kernel")
   say("main", f"bigscene image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
   return counts
+
+
+def capture_bounce(scene, config, dev, bounce: int):
+  """The closest-hit and the shadow rays that the main path traces at
+  `bounce` (0 = the camera rays) of one iteration, as the trace dispatch
+  receives them: ((o, d, t_min, t_max), (o, d, t_min, t_max))."""
+  from etx_tracer_tpu_torch.ops import trace as trace_ops
+  calls = {"closest": 0, "occluded": 0}
+  got = {}
+  orig = {kind: getattr(trace_ops, f"trace_{kind}") for kind in calls}
+
+  def hook(kind):
+    def trace(sc, o, d, t_min, t_max, tri_mask=None):
+      check(tri_mask is None, "the main path passed a triangle mask")
+      if calls[kind] == bounce:
+        got[kind] = tuple(x.clone() for x in (o, d, t_min, t_max))
+      calls[kind] += 1
+      return orig[kind](sc, o, d, t_min, t_max)
+    return trace
+
+  try:
+    for kind in calls:
+      setattr(trace_ops, f"trace_{kind}", hook(kind))
+    path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
+  finally:
+    for kind, fn in orig.items():
+      setattr(trace_ops, f"trace_{kind}", fn)
+  check(set(got) == set(calls), f"the main path traced fewer than {bounce + 1} bounces")
+  return got["closest"], got["occluded"]
+
+
+def captured_phase(scene, config, dev):
+  """K3 and K4 on the rays that the materials main path traces at bounce 2:
+  held against their plain versions, timed, with their live share and
+  bound."""
+  closest, shadow = capture_bounce(scene, config, dev, CAPTURE_BOUNCE)
+  geometry = (list(scene[:3]), None)
+  for name, rays in (("intersect_brute2", closest), ("occluded_brute2", shadow)):
+    e, frac = compare(name, geometry, rays, None)
+    run = kernel_call(name, geometry)
+    ms = kernel_ms(lambda: run(*rays), KERNELS[name][2], 50)
+    ops, nbytes, counted = work(name, geometry, rays)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    live = float(needs_pairs(rays[2], rays[3]).float().mean().item())
+    dead_zero = float((brute2_trace.dead_lanes(rays[2], rays[3]) & (rays[3] == 0.0)).float()
+                      .mean().item())
+    say("captured", f"{name} on the materials main path's bounce {CAPTURE_BOUNCE} "
+        f"({rays[0].shape[0]} lanes, live share {live:.4f}, dead with t_max = 0 {dead_zero:.4f}, "
+        f"hit fraction {frac:.4f}): matches the plain version (max abs err {e}); kernel "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations from {counted}, "
+        f"{nbytes} bytes)")
 
 
 def profile_step_mix(label, scene, config, dev):
@@ -749,7 +860,8 @@ def main() -> int:
            ("bigscene", big_geo, ROOM, FEW_RAYS)]
   soup4096 = ("soup4096", (tri_soup(rng, 4096, dev), None), None, RAYS)
   soup129 = ("soup129", (tri_soup(rng, 129, dev), None), None, RAYS)
-  pair_tile = [("materials", mat_geo, ROOM, RAYS), soup4096, soup129,
+  soup4097 = ("soup4097", (tri_soup(rng, 4097, dev), None), None, RAYS)
+  pair_tile = [("materials", mat_geo, ROOM, RAYS), soup4096, soup4097, soup129,
                ("cornell", cornell_geo, None, RAYS), ("bigscene", big_geo, ROOM, RAYS)]
   woop = [("materials", mat_geo, ROOM, RAYS), ("caustics", caustics_geo, ROOM, RAYS),
           ("bigscene", big_geo, ROOM, RAYS), soup4096, soup129]
@@ -779,6 +891,7 @@ def main() -> int:
   profile_step_mix("cornell 512x512", *cornell_512, dev)
   counts_mat = main_path_materials(*materials_512, dev)
   profile_step_mix("materials 512x512", *materials_512, dev)
+  captured_phase(*materials_512, dev)
   counts_big = main_path_bigscene(*bigscene_512, dev)
   profile_step_mix("bigscene 512x512", *bigscene_512, dev)
   counts_node = end_to_end()

@@ -20,6 +20,11 @@ holds at most 2^22 pairs, so no temporary grows past 16 MB); the CPU tests
 hold them against the TPU kernel's own body run in interpret mode, and
 `chip_smoke.py` holds each kernel against them on the card.
 
+The kernels skip a ray whose interval admits no valid pair under their
+rounding (`dead_lanes`: t_max <= 0 < 1e-30 < t_min, the main path's dead
+lanes and pending-free shadow lanes) and write its miss at once; the plain
+versions test it and find no valid pair, so the outputs are the same.
+
 The trace dispatch (`ops/trace.py`) sends scenes of 129 to 4096 triangles
 here, as the JAX package does; the kernels, like the TPU kernels, take any
 count (the micro-benchmark runs K3/K4 on bigscene's 15,396 triangles).
@@ -38,13 +43,23 @@ from etx_tracer_tpu_torch.ops import _build, brute_trace
 from etx_tracer_tpu_torch.ops.brute_trace import Hit
 
 CHUNK = 512                 # triangles per chunk, as the TPU kernel's _B2_TC
+TILE_RAYS = 256             # rays per block of the kernels (one block a tile)
 _TILE_PAIRS = 1 << 22       # ray-triangle pairs per plain-version tile
 _MT_EPS = 1e-9
+# a ray with t_max <= 0 and t_min above this has no valid pair (the proof is
+# in csrc/brute2_trace.cu); the kernels skip it
+SKIP_T_MIN = 1e-30
 
 launches = {"intersect": 0, "occluded": 0}
 
 
 # --------------------------------------------------------------- plain versions
+
+
+def dead_lanes(t_min, t_max):
+  """The kernels' skip test, (R,) bool: t_max <= 0 and t_min > 1e-30 (both
+  compared in float32, as the kernels compare them)."""
+  return (t_max <= 0.0) & (t_min > SKIP_T_MIN)
 
 
 def _folded(tri_e1, tri_e2, tri_mask):
@@ -154,6 +169,8 @@ def _library():
     lib.etx_brute2_intersect.restype = _I
     lib.etx_brute2_occluded.argtypes = _COMMON + [_P, _P]
     lib.etx_brute2_occluded.restype = _I
+    lib.etx_brute2_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.etx_brute2_occupancy.restype = _I
     lib.etx_brute2_error_string.argtypes = [_I]
     lib.etx_brute2_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -163,6 +180,16 @@ def _library():
 def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask):
   return brute_trace._check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask,
                             what="pair-tile")
+
+
+def occupancy(num_t: int, any_hit: bool) -> int:
+  """Blocks of the kernel that one SM holds at once for a table of num_t
+  triangles (its registers and shared memory decide), by the CUDA runtime's
+  occupancy calculator on the current device."""
+  blocks = _I(0)
+  _raise_on(_library().etx_brute2_occupancy(num_t, int(any_hit), ctypes.byref(blocks)),
+            "occupancy")
+  return blocks.value
 
 
 def _raise_on(rc: int, what: str):

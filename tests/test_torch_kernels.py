@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
 Tests marked `cuda` need an NVIDIA GPU and skip without one. They import
-only torch and the port, so they run on a machine without JAX:
+only torch, the port and `chip_smoke.py` (which imports no JAX either), so
+they run on a machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from etx_tracer_tpu_torch.models import path_tracing
 from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
@@ -158,6 +160,27 @@ def test_pair_tile_kernels_match_plain(cuda, num_t, masked):
   assert torch.equal(occ, brute2_trace.occluded_plain(*args, tri_mask=mask))
   assert torch.equal(occ, hit.found)
   assert 0.05 < hit.found.float().mean().item() < 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("num_t", [129, 996, 4096, 4097, 15396])
+def test_pair_tile_kernels_on_mixed_lanes_match_plain(cuda, num_t, masked):
+  rng = np.random.default_rng(400 + num_t + masked)
+  args = _materials_case(rng, 8193, cuda) if num_t == 996 else _case(rng, num_t, 8193, cuda)
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  tris = args[:3]
+  # dead lanes (which the kernels skip) among live ones, intervals that are
+  # not empty, strided rays: the patterns chip_smoke.py holds them on
+  for label, rays in chip_smoke.lane_variants(args[3:]).items():
+    hit = brute2_trace.intersect(*tris, *rays, tri_mask=mask)
+    occ = brute2_trace.occluded(*tris, *rays, tri_mask=mask)
+    ref = brute2_trace.intersect_plain(*tris, *rays, tri_mask=mask)
+    for got, want in zip(hit, ref):
+      assert torch.equal(got, want), label
+    assert torch.equal(occ, brute2_trace.occluded_plain(*tris, *rays, tri_mask=mask)), label
+    assert torch.equal(occ, hit.found), label
+    assert not bool(hit.found[brute2_trace.dead_lanes(rays[2], rays[3])].any()), label
 
 
 @pytest.mark.cuda
