@@ -18,18 +18,25 @@ Phases, one line each with its elapsed seconds:
   5. K3 pair-tile closest hit and 6. K4 pair-tile any hit: the same checks
      on 2^18 rays against the materials scene's 996 triangles, random
      4096- and 4097-triangle soups, a 129-triangle soup, the Cornell
-     triangles and bigscene's 15,396, and on 2^16 of those rays under six
+     triangles and bigscene's 15,396, and on 2^16 of those rays under eight
      lane patterns (every other lane dead, all dead, one live ray per warp,
-     t_max == t_min, t_min = t_max = 0, strided rays); timed, with the plain
-     version, at 2^18 rays x 996 triangles, K3 also x 15,396, with each
-     kernel's blocks per SM and waves;
+     t_max == t_min, t_min = t_max = 0, a NaN t_min on every third lane,
+     t_min one ulp above t_max on every other lane, strided rays); timed,
+     with the plain version, at 2^18 rays x 996 triangles, K3 also x 15,396,
+     with each kernel's blocks per SM and waves;
   7. K5 fat-row BVH closest hit and 8. K6 fat-row any hit, then 9. K7
      plain-node BVH closest hit and 10. K8 plain-node any hit: the same
      checks on 2^18 rays against bigscene's tree (15,396 triangles, origins
-     inside the room) and the tree of a random 5000-triangle soup, with and
-     without masked rows; K7/K8 walk the same trees without their fat rows.
-     Timed at 2^18 rays against bigscene; each bound counts the box and
-     triangle tests the plain version's walk makes for those rays;
+     inside the room) and the tree of a random 5000-triangle soup, and on
+     2^16 rays against a comb 61 levels deep (its fat walk pushes 60 stack
+     entries), with and without masked rows, and on 2^14 of those rays under
+     the eight lane patterns; K7/K8 walk the same trees without their fat
+     rows. Timed at 2^18 rays against bigscene; each bound counts the box
+     and triangle tests the plain version's walk makes for the rays whose
+     interval is not empty; a per-ray work line gives the plain walk's rows
+     and triangle tests a ray (mean, p99, max) and the share of lane slots
+     that carry a step when one thread walks one ray; K5/K6 also print their
+     blocks per SM and persistent grid;
   11. K9a Woop closest hit and 12. K9b Woop any hit: the same checks on
      2^18 rays against the materials (996), caustics (1,060) and bigscene
      (dense, 15,396) scenes and the 4096- and 129-triangle soups; timed, with
@@ -53,7 +60,9 @@ Phases, one line each with its elapsed seconds:
   15. main path, bigscene: twelve icospheres in the Cornell box (15,396
      triangles, Diffuse, RGB) at 512x512, max path length 8, a 2^18-lane
      pool and 8 iterations, traced by K5/K6, counted and profiled the same
-     way;
+     way; then its bounce-2 rays captured as the materials path's are, with
+     K5 and K6 held against the plain walk and timed on them, beside their
+     live share, bound and per-ray work;
   16. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
@@ -125,6 +134,9 @@ RAYS = 1 << 18
 # rays of a K1/K2 check case against thousands of triangles, where the plain
 # versions' per-triangle loops are slow (seconds a call at 2^16 x 15,396)
 FEW_RAYS = 1 << 16
+# rays of a BVH kernel's lane patterns: the plain walk's time grows with its
+# longest walk, about a second a call on the card
+BVH_LANE_RAYS = 1 << 14
 ITERATIONS = 64  # Cornell main-path samples per pixel: one chunk of the JAX package's bench
 # materials main path: one `_pt_mrays` call of the JAX package's bench
 MATERIALS_ITERATIONS = 8
@@ -176,8 +188,11 @@ def event_ms(fn, reps: int) -> float:
 
 
 def kernel_ms(fn, kernel_name: str, reps: int) -> float:
-  """Device time per launch of the kernel whose name contains `kernel_name`,
-  from the profiler's trace of `reps` calls."""
+  """Device time per call of the kernels whose names contain `kernel_name`,
+  from the profiler's trace of `reps` calls: each such kernel's mean time per
+  launch, summed (K6 launches two a call, its pack and walk kernels). A mean
+  per launch, not a total over the calls: the profiler may drop some of a
+  trace's kernel records."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -185,13 +200,10 @@ def kernel_ms(fn, kernel_name: str, reps: int) -> float:
     for _ in range(reps):
       fn()
     torch.cuda.synchronize()
-  total_us, count = 0.0, 0
-  for ev in prof.key_averages():
-    if kernel_name in ev.key:
-      total_us += ev.device_time_total
-      count += ev.count
-  check(count > 0 and total_us > 0.0, f"the profiler recorded no {kernel_name} launch")
-  return total_us / 1e3 / count
+  per_launch = [ev.device_time_total / ev.count for ev in prof.key_averages()
+                if kernel_name in ev.key and ev.count > 0 and ev.device_time_total > 0.0]
+  check(len(per_launch) > 0, f"the profiler recorded no {kernel_name} launch")
+  return sum(per_launch) / 1e3
 
 
 def bound_ms(ops: int, nbytes: int):
@@ -220,6 +232,52 @@ def soup_tree(rng, n: int, dev):
   tree = bvh_build.build_bvh(v0, e1, e2)
   arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
             **{f"bvh.{k}": v for k, v in tree.items()}}
+  return tris, scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)
+
+
+def comb_tree(rng, depth: int, dev):
+  """(triangle arrays, BVH) of a comb of `depth` levels: spine node k has
+  spine node k + 1 as its left child and, as its right child, an inner node
+  over two one-triangle leaves; the last spine node has two leaves. Every
+  box is the scene's, so a ray from inside walks every row, and its fat walk
+  pushes depth - 1 entries: a stack deeper than any scene's so far (depth 61
+  pushes 60 of the kernels' 64)."""
+  num_t = 2 * depth
+  v0 = rng.uniform(-1.0, 1.0, (num_t, 3)).astype(np.float32)
+  e1 = rng.uniform(-0.5, 0.5, (num_t, 3)).astype(np.float32)
+  e2 = rng.uniform(-0.5, 0.5, (num_t, 3)).astype(np.float32)
+  corners = np.stack([v0, v0 + e1, v0 + e2])
+  lo, hi = corners.min(axis=(0, 1)), corners.max(axis=(0, 1))
+  left, count = [], []
+
+  def node(n_tris, first=0):
+    left.append(first)
+    count.append(n_tris)
+    return len(left) - 1
+
+  def leaf():
+    return node(1, sum(count))
+
+  def two_leaves(i):
+    leaf()
+    left[i] = leaf()
+
+  for _ in range(depth - 1):   # pre-order: the spine first, then the pairs
+    node(0)
+  spine = list(range(depth - 1))
+  last = node(0)
+  two_leaves(last)
+  for k in reversed(spine):
+    left[k] = node(0)
+    two_leaves(left[k])
+  tree = {"node_min": np.tile(lo, (len(left), 1)), "node_max": np.tile(hi, (len(left), 1)),
+          "node_left": np.asarray(left, np.int32), "node_count": np.asarray(count, np.int32),
+          "prim_index": np.arange(num_t, dtype=np.int32)}
+  tree["fat_rows"] = bvh_build.build_fat_rows(tree["node_min"], tree["node_max"],
+                                             tree["node_left"], tree["node_count"])
+  arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+            **{f"bvh.{k}": v for k, v in tree.items()}}
+  tris = [torch.from_numpy(a).to(dev) for a in (v0, e1, e2)]
   return tris, scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)
 
 
@@ -407,15 +465,25 @@ def work(name, geometry, rays):
   num_r = rays[0].shape[0]
   out_bytes = 16 if entry.startswith("intersect") else 1
   if mod is bvh_trace:
-    stats = {"boxes": 0, "tris": 0}
+    fat = entry.endswith("fat")
+    zeros = lambda: torch.zeros(num_r, dtype=torch.int64, device=rays[0].device)
+    stats = {"boxes": 0, "tris": 0, "ray_rows": zeros(), "ray_tris": zeros()}
     getattr(bvh_trace, f"{entry}_plain")(bvh, *rays, stats=stats)
+    # a ray with an empty interval needs no test (K5/K6 skip it); the rest
+    # need the walk's box and triangle tests
+    live = live_lanes(name, rays)
+    rows = int(stats["ray_rows"][live].sum().item())
+    tri_tests = int(stats["ray_tris"][live].sum().item())
+    ops = rows * (2 if fat else 1) * FLOPS_PER_BOX + tri_tests * FLOPS_PER_BVH_TRI
     # the words the walk reads: a fat row but its skip word, a whole node
-    # row, a triangle row but its 2 pad words
-    table_bytes = (bvh.fat_table.shape[0] * 60 if entry.endswith("fat")
-                   else bvh.node_table.shape[0] * 32)
-    ops = stats["boxes"] * FLOPS_PER_BOX + stats["tris"] * FLOPS_PER_BVH_TRI
-    nbytes = num_r * (32 + out_bytes) + table_bytes + bvh.prim_tris.shape[0] * 40
-    return ops, nbytes, stats
+    # row, a triangle row but its 2 pad words; every ray's interval is read
+    # and its output written, a live ray's origin and direction read
+    table_bytes = bvh.fat_table.shape[0] * 60 if fat else bvh.node_table.shape[0] * 32
+    n_live = int(live.sum().item())
+    nbytes = (num_r * (8 + out_bytes) + n_live * 24 + table_bytes
+              + bvh.prim_tris.shape[0] * 40)
+    counted = {"rows" if fat else "nodes": rows, "tris": tri_tests, "live rays": n_live}
+    return ops, nbytes, counted, walk_line(stats["ray_rows"], stats["ray_tris"], fat)
   live = int(needs_pairs(rays[2], rays[3]).sum().item())
   t_tri = tris[0].shape[0]
   if entry == "intersect":
@@ -425,25 +493,58 @@ def work(name, geometry, rays):
   else:
     pairs = first_hit_pairs_chunked(mod, *tris, *rays)
   nbytes = num_r * (32 + out_bytes) + t_tri * TRI_BYTES[mod]
-  return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs}
+  return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs}, None
 
 
-def lane_variants(rays):
-  """The first 2^16 of `rays` under each lane pattern the pair-tile kernels
-  must take: dead lanes (t_max = 0 or -0, which they skip) among live ones,
+def walk_line(ray_rows, ray_tris, fat: bool) -> str:
+  """Per-ray work of the plain walk, over every ray in index order (dead
+  lanes included, as a kernel with one ray a thread walks them): mean, p99
+  and max rows (nodes) and triangle tests a ray, and the share of lane
+  slots that carry a step when each thread walks one ray and a warp of 32
+  consecutive rays runs until its longest walk ends."""
+  parts = []
+  for what, x in (("fat rows" if fat else "nodes", ray_rows), ("triangle tests", ray_tris)):
+    xf = x.double()
+    pad = (-x.shape[0]) % 32
+    warps = torch.cat([xf, xf.new_zeros(pad)]).view(-1, 32)
+    share = float(xf.sum() / (32.0 * warps.amax(dim=1)).sum().clamp(min=1.0))
+    parts.append(f"{what} a ray mean {float(xf.mean()):.2f} p99 {float(xf.quantile(0.99)):.0f} "
+                 f"max {int(x.max())}, useful lane share {share:.3f}")
+  return "; ".join(parts)
+
+
+def live_lanes(name, rays):
+  """(R,) bool: the rays that need work of kernel `name`: for K5-K8 those
+  whose interval is not empty (K5/K6 skip the others), for the triangle
+  kernels those that the pair-tile kernels' skip test finds not dead."""
+  if KERNELS[name][0] is bvh_trace:
+    return ~bvh_trace.dead_lanes(rays[2], rays[3])
+  return needs_pairs(rays[2], rays[3])
+
+
+def lane_variants(rays, n: int = FEW_RAYS):
+  """The first n of `rays` under each lane pattern the pair-tile and BVH
+  kernels must take: dead lanes (t_max = 0 or -0, which K3/K4 skip; a NaN
+  t_min or a t_min one ulp above t_max, which K5/K6 skip) among live ones,
   intervals that are not empty, strided rays."""
-  o, d, t_min, t_max = (x[:FEW_RAYS] for x in rays)
+  o, d, t_min, t_max = (x[:n] for x in rays)
   every_other = t_max.clone()
   every_other[::2] = 0.0
   one_per_warp = torch.full_like(t_max, -0.0)
   one_per_warp[::32] = t_max[::32]
   zeros = torch.zeros_like(t_min)
+  nan_third = t_min.clone()
+  nan_third[1::3] = float("nan")
+  ulp_above = t_min.clone()
+  ulp_above[::2] = torch.nextafter(t_max[::2], torch.tensor(float("inf"), device=t_max.device))
   wide = torch.cat([o, d], dim=1)
   return {"every other lane dead": (o, d, t_min, every_other),
           "all dead": (o, d, t_min, torch.zeros_like(t_max)),
           "one live ray per warp": (o, d, t_min, one_per_warp),
           "t_max == t_min": (o, d, t_min, t_min.clone()),
           "t_min = t_max = 0": (o, d, zeros, zeros.clone()),
+          "NaN t_min on every third lane": (o, d, nan_third, t_max),
+          "t_min one ulp above t_max on every other lane": (o, d, ulp_above, t_max),
           "strided": (wide[:, :3], wide[:, 3:], t_min, t_max)}
 
 
@@ -455,9 +556,15 @@ def compare(name, geometry, rays, mask):
 
 
 def occupancy_note(name, num_t, num_r):
-  """Blocks per SM and waves of a pair-tile kernel for this shape."""
-  blocks = brute2_trace.occupancy(num_t, name not in CLOSEST)
+  """Blocks per SM and waves of a pair-tile kernel for this shape, or the
+  persistent grid of K5/K6."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
+  if KERNELS[name][0] is bvh_trace:
+    blocks, threads = bvh_trace.fat_occupancy(name not in CLOSEST)
+    grid = min(blocks * sms, -(-num_r // threads))
+    return (f"{blocks} blocks of {threads} threads per SM ({blocks * threads // 32} resident "
+            f"warps), {grid} persistent blocks for {num_r} rays")
+  blocks = brute2_trace.occupancy(num_t, name not in CLOSEST)
   grid = -(-num_r // brute2_trace.TILE_RAYS)
   return (f"{blocks} blocks of {brute2_trace.TILE_RAYS} threads per SM, {grid} blocks in "
           f"{grid / (blocks * sms):.2f} waves of {blocks * sms}")
@@ -465,12 +572,14 @@ def occupancy_note(name, num_t, num_r):
 
 def kernel_phase(name, dev, rng, cases, timed):
   """Hold one kernel against its plain version on every case (with and
-  without masked rows; a pair-tile kernel also under each lane pattern of
-  `lane_variants`), then time both on each case of `timed`; the first timed
-  case is the one the `kernels` line reports. A case is (label, (tris, bvh),
-  origin box or None, rays)."""
+  without masked rows; a pair-tile or BVH kernel also under each lane
+  pattern of `lane_variants`), then time both on each case of `timed`; the
+  first timed case is the one the `kernels` line reports. A case is (label,
+  (tris, bvh), origin box or None, rays)."""
   kname = KERNELS[name][2]
-  pair_tile = KERNELS[name][0] is brute2_trace
+  mod = KERNELS[name][0]
+  lanes = mod in (brute2_trace, bvh_trace)
+  persistent = name in ("intersect_bvh_fat", "occluded_bvh_fat")
   err = 0.0
   for label, geometry, inside, num_r in cases:
     tris = geometry[0]
@@ -481,14 +590,15 @@ def kernel_phase(name, dev, rng, cases, timed):
       err = max(err, e)
       say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
-      if not pair_tile:
+      if not lanes:
         continue
       fracs = []
-      for variant, lanes in lane_variants(rays).items():
-        e, frac = compare(name, geometry, lanes, mask)
+      n_lane = FEW_RAYS if mod is brute2_trace else BVH_LANE_RAYS
+      for variant, lane_rays in lane_variants(rays, n_lane).items():
+        e, frac = compare(name, geometry, lane_rays, mask)
         err = max(err, e)
         fracs.append(f"{variant} {frac:.4f}")
-      say(name, f"{label} masked={mask is not None} {FEW_RAYS} rays under each lane "
+      say(name, f"{label} masked={mask is not None} {min(n_lane, num_r)} rays under each lane "
           f"pattern match the plain version; hit fraction " + ", ".join(fracs))
 
   rows = []
@@ -496,7 +606,7 @@ def kernel_phase(name, dev, rng, cases, timed):
     rays = test_rays(rng, *geometry[0], num_r, dev, inside)
     run = kernel_call(name, geometry)
     plain = kernel_call(name, geometry, plain=True)
-    ops, nbytes, counted = work(name, geometry, rays)
+    ops, nbytes, counted, per_ray = work(name, geometry, rays)
     ms = kernel_ms(lambda: run(*rays), kname, 50)
     # one timed call after a warm one: the plain versions take up to seconds
     plain_ms = event_ms(lambda: plain(*rays), 1)
@@ -504,7 +614,9 @@ def kernel_phase(name, dev, rng, cases, timed):
     say(name, f"{num_r} rays x {geometry[0][0].shape[0]} tris ({label}): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations "
         f"from {counted}, {nbytes} bytes)")
-    if pair_tile:
+    if per_ray is not None:
+      say(name, f"per-ray work ({label}, plain walk): {per_ray}")
+    if mod is brute2_trace or persistent:
       say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
   return {"max_abs_err": err, **rows[0]}
@@ -625,26 +737,28 @@ def capture_bounce(scene, config, dev, bounce: int):
   return got["closest"], got["occluded"]
 
 
-def captured_phase(scene, config, dev):
-  """K3 and K4 on the rays that the materials main path traces at bounce 2:
-  held against their plain versions, timed, with their live share and
-  bound."""
+def captured_phase(label, names, scene, config, dev):
+  """The closest-hit and the any-hit kernel `names` on the rays that a main
+  path traces at bounce 2: held against their plain versions, timed, with
+  their live share and bound (and, for K5/K6, the plain walk's work a
+  ray)."""
   closest, shadow = capture_bounce(scene, config, dev, CAPTURE_BOUNCE)
-  geometry = (list(scene[:3]), None)
-  for name, rays in (("intersect_brute2", closest), ("occluded_brute2", shadow)):
+  geometry = (list(scene[:3]), scene.bvh if KERNELS[names[0]][0] is bvh_trace else None)
+  for name, rays in zip(names, (closest, shadow)):
     e, frac = compare(name, geometry, rays, None)
     run = kernel_call(name, geometry)
     ms = kernel_ms(lambda: run(*rays), KERNELS[name][2], 50)
-    ops, nbytes, counted = work(name, geometry, rays)
+    ops, nbytes, counted, per_ray = work(name, geometry, rays)
     b_ms, b_by = bound_ms(ops, nbytes)
-    live = float(needs_pairs(rays[2], rays[3]).float().mean().item())
-    dead_zero = float((brute2_trace.dead_lanes(rays[2], rays[3]) & (rays[3] == 0.0)).float()
-                      .mean().item())
-    say("captured", f"{name} on the materials main path's bounce {CAPTURE_BOUNCE} "
-        f"({rays[0].shape[0]} lanes, live share {live:.4f}, dead with t_max = 0 {dead_zero:.4f}, "
-        f"hit fraction {frac:.4f}): matches the plain version (max abs err {e}); kernel "
-        f"{ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 operations from {counted}, "
-        f"{nbytes} bytes)")
+    live = live_lanes(name, rays)
+    dead_zero = float((~live & (rays[3] == 0.0)).float().mean().item())
+    say("captured", f"{name} on the {label} main path's bounce {CAPTURE_BOUNCE} "
+        f"({rays[0].shape[0]} lanes, live share {float(live.float().mean().item()):.4f}, dead "
+        f"with t_max = 0 {dead_zero:.4f}, hit fraction {frac:.4f}): matches the plain version "
+        f"(max abs err {e}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({ops} FP32 "
+        f"operations from {counted}, {nbytes} bytes)")
+    if per_ray is not None:
+      say("captured", f"{name} per-ray work (plain walk): {per_ray}")
 
 
 def profile_step_mix(label, scene, config, dev):
@@ -866,9 +980,11 @@ def main() -> int:
   woop = [("materials", mat_geo, ROOM, RAYS), ("caustics", caustics_geo, ROOM, RAYS),
           ("bigscene", big_geo, ROOM, RAYS), soup4096, soup129]
   soup = soup_tree(rng, 5000, dev)
-  bvh_fat = [("bigscene", big_geo, ROOM, RAYS), ("soup5000", soup, None, RAYS)]
-  bvh_node = [("bigscene", (big_geo[0], scene_types.without_fat_rows(big_geo[1])), ROOM, RAYS),
-              ("soup5000", (soup[0], scene_types.without_fat_rows(soup[1])), None, RAYS)]
+  comb = comb_tree(rng, 61, dev)
+  bvh_fat = [("bigscene", big_geo, ROOM, RAYS), ("soup5000", soup, None, RAYS),
+             ("comb61", comb, None, FEW_RAYS)]
+  bvh_node = [(label, (tris, scene_types.without_fat_rows(bvh)), box, num_r)
+              for label, (tris, bvh), box, num_r in bvh_fat]
   # K1, K3 and K9a timed also at bigscene's 15,396 triangles, at the micro
   # groups' ray counts (K1: `trace`, 2^16; K3 and K9a: `trace_brute`, 2^18)
   big_k1 = ("bigscene", big_geo, ROOM, 1 << 16)
@@ -891,9 +1007,10 @@ def main() -> int:
   profile_step_mix("cornell 512x512", *cornell_512, dev)
   counts_mat = main_path_materials(*materials_512, dev)
   profile_step_mix("materials 512x512", *materials_512, dev)
-  captured_phase(*materials_512, dev)
+  captured_phase("materials", ("intersect_brute2", "occluded_brute2"), *materials_512, dev)
   counts_big = main_path_bigscene(*bigscene_512, dev)
   profile_step_mix("bigscene 512x512", *bigscene_512, dev)
+  captured_phase("bigscene", ("intersect_bvh_fat", "occluded_bvh_fat"), *bigscene_512, dev)
   counts_node = end_to_end()
   counts_micro = micro_phase(dev)
 

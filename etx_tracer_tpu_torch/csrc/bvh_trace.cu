@@ -11,12 +11,12 @@
 // kernels walk ONE depth-first node stream per tile of 1024 rays, because
 // the TPU vector unit has no per-lane control flow, and read chunk-packed
 // (16, 128) tables through one-hot reduces, with ids stored as float32.
-// Here one thread owns one ray and walks the same tree on its own stack (64
-// int entries in local memory) in the same left-first pre-order, reading
-// fat rows (64 B, four 16-byte loads), node rows (32 B, two loads) and the
-// triangle rows reordered by leaf order (48 B, three loads) through the
-// read-only path. Ids and counts are int32. The bigscene tables (305 KB of
-// fat rows, 305 KB of nodes, 739 KB of triangles) sit in the 50 MB L2.
+// Here each ray walks the same tree on its own stack in the same left-first
+// pre-order, reading fat rows (64 B, four 16-byte loads), node rows (32 B,
+// two loads) and the triangle rows reordered by leaf order (48 B, three
+// loads) through the read-only path. Ids and counts are int32. The bigscene
+// tables (305 KB of fat rows, 305 KB of nodes, 739 KB of triangles) sit in
+// the 50 MB L2.
 //
 // Walk. A fat row slab-tests both children's boxes against
 // cap = min(t_max, best_t) (t_max for the any hits), tests the triangles of
@@ -33,18 +33,56 @@
 // The any hits return at the first valid triangle, where the TPU kernels
 // exit once every ray of the tile is occluded; the output is the same.
 //
-// What bounds it: the work depends on the data. Per ray, bigscene's closest
-// hit walks make about 29 box tests (14 FP32 adds, subtracts and
-// multiplies and 12 min/max each) and 8 triangle tests (45 FP32 adds,
-// subtracts and multiplies and a division each); each ray moves 32 bytes
-// in and 16 (closest) or 1 (any) out, and the tables' words that the walk
-// reads are read once. At the card's FP32 and HBM peaks the two are close
-// (for 2^18 rays 3.0 us of operations, 4.0 us of bytes), and the kernel
-// takes some 60x that: the warps' walks diverge and each step waits on a
-// dependent load. This first design is simple on purpose: one ray per
-// thread, no ray sorting, no near-first child order (which would change
-// which triangle wins an exact tie against the plain version), no wide
-// nodes.
+// What bounds K5/K6. Their work is small and depends on the data: per ray of
+// `chip_smoke.py`'s 2^18 test rays in bigscene, K5 reads 14.4 fat rows (p99
+// 68, max 129) and tests 8.2 triangles (p99 45, max 90), K6 8.3 rows and 2.9
+// triangles, 4 us of bytes at the HBM peak. The kernels take some 50x that,
+// and what sets their time is the longest walks, a chain of dependent steps
+// each: a row's loads, its box tests, its leaves' triangle tests, the next
+// row. One ray a thread, a warp runs as long as its longest walk, and in
+// each of its steps the other lanes' leaf loops run in turn: only 0.29 of
+// K5's lane slots (0.32 of K6's) carry a step. Dead lanes (an empty
+// interval) held slots.
+//
+// Design of K5/K6 (timed by `bvh_steps.py` against the one-ray-a-thread
+// design it replaced; PERF.md §6 has the numbers):
+//  - Packing. A ray with !(t_min <= t_max), NaN included, has no valid
+//    triangle (a hit wants t_min <= t <= t_max): it gets the miss record at
+//    once and no lane walks it.
+//  - Lanes from the batch. A warp keeps as many lanes busy as spread the
+//    live rays over every warp of the grid, at most 32: a small batch (the
+//    main path's narrow phases, a batch of long walks) runs a few rays a
+//    warp, whose walks diverge less, where 32 rays a warp wait on each
+//    other; a large batch runs full warps.
+//  - K5 (closest hit): persistent warps (as many blocks as stay resident, the
+//    occupancy calculator) take rays from a queue, `want` at a time with one
+//    atomicAdd, ballot the live ones to their idle lanes, and refill lanes
+//    once 8 are idle (Aila and Laine, "Understanding the Efficiency of Ray
+//    Traversal on GPUs", HPG 2009): the long closest-hit walks finish on
+//    balanced warps, and a refill's atomic is shared by 8 rays. The lanes to
+//    keep come from the live share each warp has seen.
+//  - K6 (any hit): a first kernel writes the dead rays' misses and packs the
+//    live rays' indices into a list (one atomicAdd a block); the walk's
+//    active lanes take fixed strides of it, one ray after another. The short
+//    any-hit walks gain less from a queue than its atomics and votes cost,
+//    and a batch of dead rays (the main path's shadow rays) costs one pass.
+//  - A warp none of whose rays runs parallel to an axis (|d| < 1e-12, rare
+//    off the test rays) steps without the parallel-axis override; the two
+//    leaves of a row are tested in one loop of n_l + n_r triangles.
+//  - The stack stays in local memory, which L1 holds: in shared memory
+//    ([entry][thread], 16 or 64 entries a ray) it was slower. The scratch
+//    memory (counts, queue, list) comes from the wrapper; the entry resets
+//    it with cudaMemsetAsync on the stream, so a launch can be captured in a
+//    CUDA graph.
+// The invariant that keeps every bit: each ray makes exactly the steps of
+// the plain walk (`ops/bvh_trace.py:_walk`): the same rows in the same
+// order, the same cap at each, the same triangle tests in the same order,
+// the strict `t < best_t`, the any hit's stop at the first valid triangle.
+// The design changes which lane runs a ray and when, and which instructions
+// compute each value, never what is computed.
+//
+// K7/K8 keep the first design: one thread per ray, blocks of 128, the stack
+// in local memory.
 //
 // Numerics: the expressions of `pallas_trace._tri_hit` and the slab of
 // `_fat_step` / `_kernel_bvh`, in the same order, built with -fmad=false and
@@ -57,10 +95,15 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // threads a block of K5-K8
+constexpr int kWarps = kThreads / 32;
+constexpr int kPackThreads = 256;  // K6's pack kernel
+constexpr int kRefillMin = 8;     // K5 refills its lanes once this many are idle
 constexpr int kStackDepth = 64;   // ops/bvh_build.py STACK_DEPTH
 constexpr float kMtEps = 1e-9f;
 constexpr float kBig = 3e38f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -75,36 +118,53 @@ struct Best {
   float u, v;
 };
 
+struct Rays {
+  const float* o;
+  int o_ray, o_comp;
+  const float* d;
+  int d_ray, d_comp;
+  const float* t_min;
+  const float* t_max;
+  int n;
+};
+
+struct Out {
+  float* t;
+  int* tri;
+  float* u;
+  float* v;
+  unsigned char* occ;
+};
+
 __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / (fabsf(x) < 1e-20f ? (x < 0.0f ? -1e-20f : 1e-20f) : x);
 }
 
-__device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ o, int o_ray, int o_comp,
-                                        const float* __restrict__ d, int d_ray, int d_comp,
-                                        const float* __restrict__ t_min,
-                                        const float* __restrict__ t_max) {
+__device__ __forceinline__ Ray load_ray(const Rays& rs, int i) {
   Ray r;
-  const long long io = (long long)i * o_ray, id = (long long)i * d_ray;
-  r.ox = o[io]; r.oy = o[io + o_comp]; r.oz = o[io + 2 * o_comp];
-  r.dx = d[id]; r.dy = d[id + d_comp]; r.dz = d[id + 2 * d_comp];
+  const long long io = (long long)i * rs.o_ray, id = (long long)i * rs.d_ray;
+  r.ox = rs.o[io]; r.oy = rs.o[io + rs.o_comp]; r.oz = rs.o[io + 2 * rs.o_comp];
+  r.dx = rs.d[id]; r.dy = rs.d[id + rs.d_comp]; r.dz = rs.d[id + 2 * rs.d_comp];
   r.ivx = safe_inv(r.dx); r.ivy = safe_inv(r.dy); r.ivz = safe_inv(r.dz);
   r.parx = fabsf(r.dx) < 1e-12f;
   r.pary = fabsf(r.dy) < 1e-12f;
   r.parz = fabsf(r.dz) < 1e-12f;
-  r.tmin = t_min[i];
-  r.tmax = t_max[i];
+  r.tmin = rs.t_min[i];
+  r.tmax = rs.t_max[i];
   return r;
 }
 
 // One axis of the slab test; an axis the ray runs parallel to (|d| < 1e-12)
-// is all or nothing by whether the origin lies in the slab.
+// is all or nothing by whether the origin lies in the slab. kPar = false
+// leaves that override out, for rays with no parallel axis.
+template <bool kPar>
 __device__ __forceinline__ void slab(bool par, float o, float iv, float mn, float mx,
                                      float& lo, float& hi) {
   const float t0 = (mn - o) * iv;
   const float t1 = (mx - o) * iv;
   lo = fminf(t0, t1);
   hi = fmaxf(t0, t1);
-  if (par) {
+  if (kPar && par) {
     const bool inside = o >= mn && o <= mx;
     lo = inside ? -kBig : kBig;
     hi = inside ? kBig : -kBig;
@@ -112,12 +172,13 @@ __device__ __forceinline__ void slab(bool par, float o, float iv, float mn, floa
 }
 
 // Conservative slab test of the box [mn, mx] over [t_min, cap].
+template <bool kPar>
 __device__ __forceinline__ bool box_hit(const Ray& r, float mnx, float mny, float mnz,
                                         float mxx, float mxy, float mxz, float cap) {
   float lx, hx, ly, hy, lz, hz;
-  slab(r.parx, r.ox, r.ivx, mnx, mxx, lx, hx);
-  slab(r.pary, r.oy, r.ivy, mny, mxy, ly, hy);
-  slab(r.parz, r.oz, r.ivz, mnz, mxz, lz, hz);
+  slab<kPar>(r.parx, r.ox, r.ivx, mnx, mxx, lx, hx);
+  slab<kPar>(r.pary, r.oy, r.ivy, mny, mxy, ly, hy);
+  slab<kPar>(r.parz, r.oz, r.ivz, mnz, mxz, lz, hz);
   const float t_near = fmaxf(fmaxf(lx, fmaxf(ly, lz)), r.tmin);
   const float t_far = fminf(fminf(hx, fminf(hy, hz)), cap);
   return t_near <= t_far * 1.0000002f + 1e-7f;
@@ -125,135 +186,338 @@ __device__ __forceinline__ bool box_hit(const Ray& r, float mnx, float mny, floa
 
 __device__ __forceinline__ float bits(int x) { return __int_as_float(x); }
 
-// Möller-Trumbore against the `count` triangle rows from `first` on (each
-// v0, e1, e2, original id as int bits, 2 pad words). The closest hit keeps
-// a valid t < best_t; the any hit returns true at the first valid one.
+// Möller-Trumbore against triangle row `j` (v0, e1, e2, original id as int
+// bits, 2 pad words). The closest hit keeps a valid t < best_t; the any hit
+// returns true for a valid one.
+template <bool kAnyHit>
+__device__ __forceinline__ bool tri_test(const Ray& r, const float4* __restrict__ tris,
+                                         const unsigned char* __restrict__ mask, int j,
+                                         Best& b) {
+  const float4* row = tris + 3 * (long long)j;
+  const float4 a = __ldg(row);
+  const float4 q = __ldg(row + 1);
+  const float4 c = __ldg(row + 2);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = q.x, e1z = q.y;
+  const float e2x = q.z, e2y = q.w, e2z = c.x;
+  const int id = __float_as_int(c.y);
+
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = px * e1x + py * e1y + pz * e1z;
+  const bool det_ok = fabsf(det) > kMtEps;
+  const float inv_det = det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const float best_t = kAnyHit ? INFINITY : b.t;
+  const bool ok = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= r.tmin &&
+                  t <= r.tmax && t < best_t && (mask == nullptr || mask[id] != 0);
+  if (ok && !kAnyHit) {
+    b.t = t;
+    b.tri = id;
+    b.u = u;
+    b.v = v;
+  }
+  return ok;
+}
+
+// The `count` triangle rows from `first` on, in order; the any hit returns
+// true at the first valid one.
 template <bool kAnyHit>
 __device__ __forceinline__ bool test_leaf(const Ray& r, const float4* __restrict__ tris,
                                           const unsigned char* __restrict__ mask, int first,
                                           int count, Best& b) {
   for (int k = 0; k < count; ++k) {
-    const float4* row = tris + 3 * (long long)(first + k);
-    const float4 a = __ldg(row);
-    const float4 q = __ldg(row + 1);
-    const float4 c = __ldg(row + 2);
-    const float v0x = a.x, v0y = a.y, v0z = a.z;
-    const float e1x = a.w, e1y = q.x, e1z = q.y;
-    const float e2x = q.z, e2y = q.w, e2z = c.x;
-    const int id = __float_as_int(c.y);
-
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = px * e1x + py * e1y + pz * e1z;
-    const bool det_ok = fabsf(det) > kMtEps;
-    const float inv_det = det_ok ? 1.0f / (det == 0.0f ? 1.0f : det) : 0.0f;
-    const float tx = r.ox - v0x;
-    const float ty = r.oy - v0y;
-    const float tz = r.oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv_det;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const float best_t = kAnyHit ? INFINITY : b.t;
-    const bool ok = det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= r.tmin &&
-                    t <= r.tmax && t < best_t && (mask == nullptr || mask[id] != 0);
-    if (ok) {
-      if (kAnyHit) return true;
-      b.t = t;
-      b.tri = id;
-      b.u = u;
-      b.v = v;
-    }
+    if (tri_test<kAnyHit>(r, tris, mask, first + k, b) && kAnyHit) return true;
   }
   return false;
 }
 
 template <bool kAnyHit>
-__device__ __forceinline__ void write_out(int i, const Best& b, bool occluded, float* t_out,
-                                          int* tri_out, float* u_out, float* v_out,
-                                          unsigned char* occ_out) {
+__device__ __forceinline__ void write_out(const Out& out, int i, const Best& b, bool occluded) {
   if (kAnyHit) {
-    occ_out[i] = occluded ? 1 : 0;
+    out.occ[i] = occluded ? 1 : 0;
   } else {
-    t_out[i] = b.t;
-    tri_out[i] = b.tri;
-    u_out[i] = b.u;
-    v_out[i] = b.v;
+    out.t[i] = b.t;
+    out.tri[i] = b.tri;
+    out.u[i] = b.u;
+    out.v[i] = b.v;
   }
 }
 
+// ------------------------------------------------------------------ K5, K6
+
+// A ray's walk in K5/K6: the row to test next and the stack pointer.
+struct Walk {
+  int row, sp;
+};
+
+// One fat row of a ray's walk: the box tests of both children against
+// cap, then the hit leaves' triangles in one loop (the left leaf's first),
+// then the move: down to a hit left inner child (pushing a hit right inner
+// child), or to a hit right inner child, or a pop. Returns true when the
+// ray has finished (an any hit found, or nothing left to pop).
+template <bool kAnyHit, bool kPar>
+__device__ __forceinline__ bool fat_step(const int4* __restrict__ fat,
+                                         const float4* __restrict__ tris,
+                                         const unsigned char* __restrict__ mask, const Ray& r,
+                                         Best& b, bool& occluded, Walk& w, int* stack) {
+  const int4* p = fat + 4 * (long long)w.row;
+  const int4 q0 = __ldg(p);
+  const int4 q1 = __ldg(p + 1);
+  const int4 q2 = __ldg(p + 2);
+  const int4 q3 = __ldg(p + 3);
+  const float cap = kAnyHit ? r.tmax : fminf(r.tmax, b.t);
+  const bool hit_l = box_hit<kPar>(r, bits(q0.x), bits(q0.y), bits(q0.z),
+                                   bits(q0.w), bits(q1.x), bits(q1.y), cap);
+  const bool hit_r = box_hit<kPar>(r, bits(q1.z), bits(q1.w), bits(q2.x),
+                                   bits(q2.y), bits(q2.z), bits(q2.w), cap);
+  const int count_l = q3.z >> 5;
+  const int count_r = q3.z & 31;
+  // an inner child's count is 0
+  const int n_l = hit_l ? count_l : 0;
+  const int n = n_l + (hit_r ? count_r : 0);
+  for (int k = 0; k < n; ++k) {
+    const int j = k < n_l ? q3.x + k : q3.y + (k - n_l);
+    if (tri_test<kAnyHit>(r, tris, mask, j, b) && kAnyHit) {
+      occluded = true;
+      return true;
+    }
+  }
+  const bool down = hit_l && count_l == 0;
+  const bool go_r = hit_r && count_r == 0;
+  if (down) {
+    // the tree's depth is checked against kStackDepth when it is frozen
+    if (go_r && w.sp < kStackDepth) stack[w.sp++] = q3.y;
+    w.row = q3.x;
+  } else if (go_r) {
+    w.row = q3.y;
+  } else if (w.sp > 0) {
+    w.row = stack[--w.sp];
+  } else {
+    return true;
+  }
+  return false;
+}
+
+// Lanes a warp keeps busy when `live` rays are shared by `warps` warps: as
+// many as spread the live rays over every warp, at most 32. A small batch
+// then runs a few rays a warp, whose long walks diverge less.
+__device__ __forceinline__ int lanes_for(long long live, int warps) {
+  const long long per = (live + warps - 1) / warps;
+  return per < 1 ? 1 : (per > 32 ? 32 : (int)per);
+}
+
+// K6's first kernel: the miss (occ = 0) for each ray whose interval is
+// empty (!(t_min <= t_max), NaN included: no t lies in it, so no triangle
+// is valid), and the live rays' indices appended to list = scratch + 2, one
+// atomicAdd on the count scratch[0] a block.
+__global__ void __launch_bounds__(kPackThreads)
+bvh_fat_kernel_pack(const Rays rs, const Out out, int* __restrict__ scratch) {
+  __shared__ int warp_at[kPackThreads / 32];
+  __shared__ int block_at;
+  const int i = blockIdx.x * kPackThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool live = false;
+  if (i < rs.n) {
+    live = rs.t_min[i] <= rs.t_max[i];
+    if (!live) write_out<true>(out, i, Best{INFINITY, -1, 0.0f, 0.0f}, false);
+  }
+  const unsigned m = __ballot_sync(kFull, live);
+  if (lane == 0) warp_at[warp] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int k = 0; k < kPackThreads / 32; ++k) {
+      const int c = warp_at[k];
+      warp_at[k] = total;
+      total += c;
+    }
+    block_at = total > 0 ? atomicAdd(scratch, total) : 0;
+  }
+  __syncthreads();
+  if (live) scratch[2 + block_at + warp_at[warp] + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// K5/K6's walk. K6 (kAnyHit): the a-th active lane (`target` a warp) walks
+// rays a, a + A, a + 2A, ... of the list that the pack kernel wrote, A the
+// active lanes of the grid. K5: persistent warps take `want` rays at a time
+// from the queue scratch[1] (all rays: each dead one gets its miss there),
+// hand the live ones to their idle lanes, and refill once kRefillMin lanes
+// are idle.
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
 bvh_fat_kernel(const int4* __restrict__ fat, const float4* __restrict__ tris,
-               const unsigned char* __restrict__ mask,
-               const float* __restrict__ o, int o_ray, int o_comp,
-               const float* __restrict__ d, int d_ray, int d_comp,
-               const float* __restrict__ t_min, const float* __restrict__ t_max, int num_r,
-               float* __restrict__ t_out, int* __restrict__ tri_out,
-               float* __restrict__ u_out, float* __restrict__ v_out,
-               unsigned char* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_r) return;
-  const Ray r = load_ray(i, o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max);
-  Best b{INFINITY, -1, 0.0f, 0.0f};
-  bool occluded = false;
+               const unsigned char* __restrict__ mask, const Rays rs, const Out out,
+               int* __restrict__ scratch) {
+  __shared__ int s_hand[kWarps][32];
   int stack[kStackDepth];
-  int sp = 0;
-  int row = 0;
-  while (true) {
-    const int4* p = fat + 4 * (long long)row;
-    const int4 q0 = __ldg(p);
-    const int4 q1 = __ldg(p + 1);
-    const int4 q2 = __ldg(p + 2);
-    const int4 q3 = __ldg(p + 3);
-    const float cap = kAnyHit ? r.tmax : fminf(r.tmax, b.t);
-    const bool hit_l = box_hit(r, bits(q0.x), bits(q0.y), bits(q0.z),
-                               bits(q0.w), bits(q1.x), bits(q1.y), cap);
-    const bool hit_r = box_hit(r, bits(q1.z), bits(q1.w), bits(q2.x),
-                               bits(q2.y), bits(q2.z), bits(q2.w), cap);
-    const int count_l = q3.z >> 5;
-    const int count_r = q3.z & 31;
-    if (hit_l && count_l > 0 && test_leaf<kAnyHit>(r, tris, mask, q3.x, count_l, b)) {
-      occluded = true;
-      break;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int warps = gridDim.x * kWarps;
+  const int warp_id = blockIdx.x * kWarps + (threadIdx.x >> 5);
+
+  if (kAnyHit) {
+    const int n = *(volatile int*)scratch;
+    const int* list = scratch + 2;
+    const int target = lanes_for(n, warps);
+    if (lane >= target) return;
+    const int stride = warps * target;
+    for (int j = warp_id * target + lane; j < n; j += stride) {
+      const int i = list[j];
+      const Ray r = load_ray(rs, i);
+      Best b{INFINITY, -1, 0.0f, 0.0f};
+      bool occluded = false;
+      Walk w{0, 0};
+      const bool par = r.parx || r.pary || r.parz;
+      while (!(par ? fat_step<kAnyHit, true>(fat, tris, mask, r, b, occluded, w, stack)
+                   : fat_step<kAnyHit, false>(fat, tris, mask, r, b, occluded, w, stack))) {
+      }
+      write_out<kAnyHit>(out, i, b, occluded);
     }
-    if (hit_r && count_r > 0 && test_leaf<kAnyHit>(r, tris, mask, q3.y, count_r, b)) {
-      occluded = true;
-      break;
+    return;
+  }
+
+  int* hand = s_hand[threadIdx.x >> 5];
+  // warp-uniform: the lanes to keep busy (from the batch, then from the live
+  // share of the rays this warp has taken), whether the queue is empty
+  int target = lanes_for(rs.n, warps);
+  int seen = 0, alive = 0;
+  bool drained = false;
+  // this lane's ray (-1: idle) and its walk
+  int cur = -1;
+  Ray r{};
+  bool any_par = false, occluded = false;
+  Best b{INFINITY, -1, 0.0f, 0.0f};
+  Walk w{};
+  for (;;) {
+    const unsigned busy = __ballot_sync(kFull, cur >= 0);
+    const int want = target - __popc(busy);
+    if (!drained && want > 0 && (busy == 0 || want >= kRefillMin)) {
+      // take `want` rays at a time from the queue; each dead one gets its
+      // miss, the live ones go to the idle lanes in order
+      const unsigned idle = ~busy;
+      int filled = 0;
+      while (filled < want && !drained) {
+        const int take = want - filled;
+        int base = 0;
+        if (lane == 0) base = atomicAdd(scratch + 1, take);
+        base = __shfl_sync(kFull, base, 0);
+        drained = base + take >= rs.n;
+        const int i = base + lane;
+        bool live = false;
+        if (lane < take && i < rs.n) {
+          // an empty interval (NaN included) has no valid triangle
+          live = rs.t_min[i] <= rs.t_max[i];
+          if (!live) write_out<kAnyHit>(out, i, Best{INFINITY, -1, 0.0f, 0.0f}, false);
+        }
+        const unsigned m = __ballot_sync(kFull, live);
+        if (live) hand[__popc(m & below)] = i;
+        __syncwarp();
+        const int q = __popc(idle & below) - filled;
+        if (((idle >> lane) & 1u) && q >= 0 && q < __popc(m)) {
+          cur = hand[q];
+          r = load_ray(rs, cur);
+          any_par = r.parx || r.pary || r.parz;
+          b = Best{INFINITY, -1, 0.0f, 0.0f};
+          occluded = false;
+          w = Walk{0, 0};
+        }
+        filled += __popc(m);
+        seen += max(0, min(take, rs.n - base));
+        alive += __popc(m);
+        __syncwarp();
+      }
+      if (seen > 0) target = lanes_for((long long)rs.n * alive / seen, warps);
     }
-    const bool down = hit_l && count_l == 0;
-    const bool go_r = hit_r && count_r == 0;
-    if (down) {
-      // the tree's depth is checked against kStackDepth when it is frozen
-      if (go_r && sp < kStackDepth) stack[sp++] = q3.y;
-      row = q3.x;
-    } else if (go_r) {
-      row = q3.y;
-    } else if (sp > 0) {
-      row = stack[--sp];
-    } else {
-      break;
+    if (__ballot_sync(kFull, cur >= 0) == 0) {
+      if (drained) break;
+      continue;
+    }
+    // the parallel-axis override only in a warp with such a ray
+    const bool par = __any_sync(kFull, cur >= 0 && any_par);
+    if (cur >= 0) {
+      const bool done =
+          par ? fat_step<kAnyHit, true>(fat, tris, mask, r, b, occluded, w, stack)
+              : fat_step<kAnyHit, false>(fat, tris, mask, r, b, occluded, w, stack);
+      if (done) {
+        write_out<kAnyHit>(out, cur, b, occluded);
+        cur = -1;
+      }
     }
   }
-  write_out<kAnyHit>(i, b, occluded, t_out, tri_out, u_out, v_out, occ_out);
 }
+
+// Blocks of K5 or K6 that the current device holds at once (per SM, and on
+// all SMs), from the occupancy calculator, cached per device.
+template <bool kAnyHit>
+cudaError_t fat_resident(int* per_sm, int* total) {
+  static int cache_sm[kMaxDevices], cache_total[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cache_total[dev] > 0) {
+    *per_sm = cache_sm[dev];
+    *total = cache_total[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, blocks = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh_fat_kernel<kAnyHit>,
+                                                    kThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  *per_sm = blocks;
+  *total = blocks * sms;
+  if (dev < kMaxDevices) {
+    cache_sm[dev] = blocks;
+    cache_total[dev] = blocks * sms;
+  }
+  return cudaSuccess;
+}
+
+template <bool kAnyHit>
+int launch_fat(const int* table, const float* tris, const unsigned char* mask, const Rays& rs,
+               const Out& out, int* scratch, void* stream) {
+  if (rs.n <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // blocks enough for every ray at once (at least one ray a warp), at most
+  // the blocks that stay resident
+  const int tiles = (rs.n + kWarps - 1) / kWarps;
+  int per_sm = 0, resident = 0;
+  cudaError_t e = fat_resident<kAnyHit>(&per_sm, &resident);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = resident < tiles ? resident : tiles;
+  // the live count and the queue start at 0
+  e = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  if (kAnyHit) {
+    bvh_fat_kernel_pack<<<(rs.n + kPackThreads - 1) / kPackThreads, kPackThreads, 0, st>>>(
+        rs, out, scratch);
+  }
+  bvh_fat_kernel<kAnyHit><<<grid, kThreads, 0, st>>>(
+      (const int4*)table, (const float4*)tris, mask, rs, out, scratch);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K7, K8
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
 bvh_node_kernel(const int4* __restrict__ nodes, const float4* __restrict__ tris,
-                const unsigned char* __restrict__ mask,
-                const float* __restrict__ o, int o_ray, int o_comp,
-                const float* __restrict__ d, int d_ray, int d_comp,
-                const float* __restrict__ t_min, const float* __restrict__ t_max, int num_r,
-                float* __restrict__ t_out, int* __restrict__ tri_out,
-                float* __restrict__ u_out, float* __restrict__ v_out,
-                unsigned char* __restrict__ occ_out) {
+                const unsigned char* __restrict__ mask, const Rays rs, const Out out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_r) return;
-  const Ray r = load_ray(i, o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max);
+  if (i >= rs.n) return;
+  const Ray r = load_ray(rs, i);
   Best b{INFINITY, -1, 0.0f, 0.0f};
   bool occluded = false;
   int stack[kStackDepth];
@@ -264,8 +528,8 @@ bvh_node_kernel(const int4* __restrict__ nodes, const float4* __restrict__ tris,
     const int4 q0 = __ldg(p);
     const int4 q1 = __ldg(p + 1);
     const float cap = kAnyHit ? r.tmax : fminf(r.tmax, b.t);
-    const bool hit = box_hit(r, bits(q0.x), bits(q0.y), bits(q0.z),
-                             bits(q0.w), bits(q1.x), bits(q1.y), cap);
+    const bool hit = box_hit<true>(r, bits(q0.x), bits(q0.y), bits(q0.z),
+                                   bits(q0.w), bits(q1.x), bits(q1.y), cap);
     const int left = q1.z;
     const int count = q1.w;
     if (hit && count > 0 && test_leaf<kAnyHit>(r, tris, mask, left, count, b)) {
@@ -281,10 +545,18 @@ bvh_node_kernel(const int4* __restrict__ nodes, const float4* __restrict__ tris,
       break;
     }
   }
-  write_out<kAnyHit>(i, b, occluded, t_out, tri_out, u_out, v_out, occ_out);
+  write_out<kAnyHit>(out, i, b, occluded);
 }
 
-inline int grid_for(int num_r) { return (num_r + kThreads - 1) / kThreads; }
+template <bool kAnyHit>
+int launch_node(const int* table, const float* tris, const unsigned char* mask, const Rays& rs,
+                const Out& out, void* stream) {
+  if (rs.n <= 0) return (int)cudaErrorInvalidValue;
+  bvh_node_kernel<kAnyHit><<<(rs.n + kThreads - 1) / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int4*)table, (const float4*)tris, mask, rs, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -293,31 +565,30 @@ extern "C" {
 // Every entry: `table` is the fat table (Ni, 16) int32 or the node table
 // (N, 8) int32, `tris` the (T, 12) float32 triangle rows in leaf order,
 // `mask` a (T,) byte per original triangle id or null. Ray component c of
-// ray i is at o[i * o_ray + c * o_comp] (likewise d). Launches on `stream`
-// without synchronising; returns cudaGetLastError().
+// ray i is at o[i * o_ray + c * o_comp] (likewise d). The fat entries take
+// `scratch`, num_r + 2 ints of device memory (the live count, the queue, the
+// list of live rays), whose first two they reset on `stream`. Launches on
+// `stream` without synchronising; returns cudaGetLastError() (or the error
+// of a call before the launches).
 int etx_bvh_intersect_fat(const int* table, const float* tris, const unsigned char* mask,
                           const float* o, int o_ray, int o_comp,
                           const float* d, int d_ray, int d_comp,
                           const float* t_min, const float* t_max, int num_r,
                           float* t_out, int* tri_out, float* u_out, float* v_out,
-                          void* stream) {
-  if (num_r <= 0) return (int)cudaErrorInvalidValue;
-  bvh_fat_kernel<false><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)table, (const float4*)tris, mask, o, o_ray, o_comp, d, d_ray, d_comp,
-      t_min, t_max, num_r, t_out, tri_out, u_out, v_out, nullptr);
-  return (int)cudaGetLastError();
+                          int* scratch, void* stream) {
+  return launch_fat<false>(table, tris, mask,
+                           Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                           Out{t_out, tri_out, u_out, v_out, nullptr}, scratch, stream);
 }
 
 int etx_bvh_occluded_fat(const int* table, const float* tris, const unsigned char* mask,
                          const float* o, int o_ray, int o_comp,
                          const float* d, int d_ray, int d_comp,
                          const float* t_min, const float* t_max, int num_r,
-                         unsigned char* occ_out, void* stream) {
-  if (num_r <= 0) return (int)cudaErrorInvalidValue;
-  bvh_fat_kernel<true><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)table, (const float4*)tris, mask, o, o_ray, o_comp, d, d_ray, d_comp,
-      t_min, t_max, num_r, nullptr, nullptr, nullptr, nullptr, occ_out);
-  return (int)cudaGetLastError();
+                         unsigned char* occ_out, int* scratch, void* stream) {
+  return launch_fat<true>(table, tris, mask,
+                          Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                          Out{nullptr, nullptr, nullptr, nullptr, occ_out}, scratch, stream);
 }
 
 int etx_bvh_intersect_node(const int* table, const float* tris, const unsigned char* mask,
@@ -326,11 +597,9 @@ int etx_bvh_intersect_node(const int* table, const float* tris, const unsigned c
                            const float* t_min, const float* t_max, int num_r,
                            float* t_out, int* tri_out, float* u_out, float* v_out,
                            void* stream) {
-  if (num_r <= 0) return (int)cudaErrorInvalidValue;
-  bvh_node_kernel<false><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)table, (const float4*)tris, mask, o, o_ray, o_comp, d, d_ray, d_comp,
-      t_min, t_max, num_r, t_out, tri_out, u_out, v_out, nullptr);
-  return (int)cudaGetLastError();
+  return launch_node<false>(table, tris, mask,
+                            Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                            Out{t_out, tri_out, u_out, v_out, nullptr}, stream);
 }
 
 int etx_bvh_occluded_node(const int* table, const float* tris, const unsigned char* mask,
@@ -338,11 +607,19 @@ int etx_bvh_occluded_node(const int* table, const float* tris, const unsigned ch
                           const float* d, int d_ray, int d_comp,
                           const float* t_min, const float* t_max, int num_r,
                           unsigned char* occ_out, void* stream) {
-  if (num_r <= 0) return (int)cudaErrorInvalidValue;
-  bvh_node_kernel<true><<<grid_for(num_r), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)table, (const float4*)tris, mask, o, o_ray, o_comp, d, d_ray, d_comp,
-      t_min, t_max, num_r, nullptr, nullptr, nullptr, nullptr, occ_out);
-  return (int)cudaGetLastError();
+  return launch_node<true>(table, tris, mask,
+                           Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                           Out{nullptr, nullptr, nullptr, nullptr, occ_out}, stream);
+}
+
+// K5 (any_hit 0) or K6 (1): blocks one SM of the current device holds at
+// once, and threads per block.
+int etx_bvh_fat_occupancy(int any_hit, int* blocks_per_sm, int* threads_per_block) {
+  int total = 0;
+  const cudaError_t e = any_hit ? fat_resident<true>(blocks_per_sm, &total)
+                                : fat_resident<false>(blocks_per_sm, &total);
+  *threads_per_block = kThreads;
+  return (int)e;
 }
 
 const char* etx_bvh_error_string(int code) {

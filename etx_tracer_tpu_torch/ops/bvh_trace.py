@@ -36,6 +36,19 @@ The mask (by original triangle id) is read per tested triangle, as
 `ops/bvh_build.kernel_tables` builds once when the scene is frozen
 (`BVH.fat_table`, `node_table`, `prim_tris`), with int32 ids and counts.
 
+K5/K6 skip a ray whose interval is empty (`dead_lanes`: !(t_min <= t_max),
+NaN included; such a ray has no valid triangle, since a hit wants
+t_min <= t <= t_max) and write its miss at once, and keep as many lanes of a
+warp busy as spread the live rays over every warp, at most 32, so a small
+batch runs a few rays a warp. K5 runs persistent warps that take rays from
+a queue and refill a lane when its ray ends; K6 first packs the live rays
+into a list (a second, small kernel) and its lanes walk fixed strides of
+it. Each ray makes exactly the steps of the plain walk, so the results are
+the same bits. The wrapper hands the kernels num_r + 2 ints of scratch (the
+live count, the queue, the list), which the launch resets on the stream,
+so a launch can be captured in a CUDA graph. K7/K8 run one ray per thread.
+The design notes and numbers are in the source.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. The plain versions walk every ray's stack at
 once, vectorised over the rays that have not finished, and evaluate each
@@ -62,6 +75,14 @@ launches = {"intersect_fat": 0, "occluded_fat": 0, "intersect_node": 0, "occlude
 
 
 # --------------------------------------------------------------- plain versions
+
+
+def dead_lanes(t_min, t_max):
+  """(R,) bool: the rays K5/K6 skip, !(t_min <= t_max) (NaN included),
+  compared in float32 as the kernels compare them. Such a ray has no valid
+  triangle in any of the walks (a hit wants t_min <= t <= t_max); the
+  kernels write its miss at once."""
+  return ~(t_min <= t_max)
 
 
 class _Rays:
@@ -136,6 +157,8 @@ def _test_leaves(ray, best, idx, first, count, prim_tris, tri_mask, any_hit, sta
       ok = ok & tri_mask[tid.long()]
     if stats is not None:
       stats["tris"] += int(sel.numel())
+      if "ray_tris" in stats:
+        stats["ray_tris"][ids] += 1
     if any_hit:
       best.occ[ids] = best.occ[ids] | ok
     else:
@@ -187,6 +210,8 @@ def _walk(bvh, o, d, t_min, t_max, tri_mask, fat: bool, any_hit: bool, stats=Non
       boxes = 1
     if stats is not None:
       stats["boxes"] += boxes * int(act.numel())
+      if "ray_rows" in stats:
+        stats["ray_rows"][act] += 1
     if any_hit:
       move = move & ~best.occ[act]
     pa = act[push & move]
@@ -213,7 +238,9 @@ def _check_plain(bvh, fat):
 def intersect_fat_plain(bvh, o, d, t_min, t_max, tri_mask=None, stats=None) -> Hit:
   """K5's walk over the fat rows: closest hit, Hit(t, tri, u, v); a miss is
   t = +inf, tri = -1, u = v = 0. `stats`, when given ({"boxes": 0,
-  "tris": 0}), counts the box and triangle tests the walk makes."""
+  "tris": 0}), counts the box and triangle tests the walk makes; with
+  (R,) int64 tensors under "ray_rows" and "ray_tris" it also adds each
+  ray's rows (or nodes) and triangle tests to them."""
   _check_plain(bvh, True)
   b = _walk(bvh, o, d, t_min, t_max, tri_mask, fat=True, any_hit=False, stats=stats)
   return Hit(b.t, b.tri, b.u, b.v)
@@ -249,18 +276,29 @@ _ENTRIES = {"intersect_fat": "etx_bvh_intersect_fat", "occluded_fat": "etx_bvh_o
 _lib = None
 
 
+def bind(lib, scratch: bool = True):
+  """Sets the argument and result types of a built `csrc/bvh_trace.cu`
+  library's entries and returns it. `scratch`: the fat entries take K5/K6's
+  scratch and the library has `etx_bvh_fat_occupancy`, as this source's
+  does (an earlier source's may not)."""
+  for name, sym in _ENTRIES.items():
+    fn = getattr(lib, sym)
+    outs = [_P, _P, _P, _P] if name.startswith("intersect") else [_P]
+    extra = [_P] if scratch and name.endswith("fat") else []
+    fn.argtypes = _COMMON + outs + extra + [_P]
+    fn.restype = _I
+  if scratch:
+    lib.etx_bvh_fat_occupancy.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.etx_bvh_fat_occupancy.restype = _I
+  lib.etx_bvh_error_string.argtypes = [_I]
+  lib.etx_bvh_error_string.restype = ctypes.c_char_p
+  return lib
+
+
 def _library():
   global _lib
   if _lib is None:
-    lib = _build.load("bvh_trace")
-    for name, sym in _ENTRIES.items():
-      fn = getattr(lib, sym)
-      fn.argtypes = _COMMON + ([_P, _P, _P, _P, _P] if name.startswith("intersect")
-                               else [_P, _P])
-      fn.restype = _I
-    lib.etx_bvh_error_string.argtypes = [_I]
-    lib.etx_bvh_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib = bind(_build.load("bvh_trace"))
   return _lib
 
 
@@ -295,22 +333,41 @@ def _check(bvh, fat, o, d, t_min, t_max, tri_mask):
   return table, num_r
 
 
+def _raise_on(rc: int, what: str):
+  if rc != 0:
+    msg = _library().etx_bvh_error_string(rc).decode()
+    raise RuntimeError(f"bvh_trace {what} kernel launch failed: {msg} (cudaError {rc})")
+
+
 def _launch(name, bvh, o, d, t_min, t_max, tri_mask, outs):
-  table, num_r = _check(bvh, name.endswith("fat"), o, d, t_min, t_max, tri_mask)
+  fat = name.endswith("fat")
+  table, num_r = _check(bvh, fat, o, d, t_min, t_max, tri_mask)
   if num_r == 0:
     return
   lib = _library()
+  # K5/K6's scratch: the live count and the queue (reset by the launch on
+  # the stream), then the list of live rays
+  scratch = [torch.empty(num_r + 2, dtype=torch.int32, device=o.device)] if fat else []
   with torch.cuda.device(o.device):
     stream = torch.cuda.current_stream(o.device).cuda_stream
     rc = getattr(lib, _ENTRIES[name])(
         table.data_ptr(), bvh.prim_tris.data_ptr(),
         None if tri_mask is None else tri_mask.data_ptr(),
         o.data_ptr(), o.stride(0), o.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
-        t_min.data_ptr(), t_max.data_ptr(), num_r, *(x.data_ptr() for x in outs), stream)
-  if rc != 0:
-    msg = lib.etx_bvh_error_string(rc).decode()
-    raise RuntimeError(f"bvh_trace {name} kernel launch failed: {msg} (cudaError {rc})")
+        t_min.data_ptr(), t_max.data_ptr(), num_r, *(x.data_ptr() for x in [*outs, *scratch]),
+        stream)
+  _raise_on(rc, name)
   launches[name] += 1
+
+
+def fat_occupancy(any_hit: bool) -> tuple[int, int]:
+  """(blocks per SM, threads per block) of K6 (any_hit) or K5 on the
+  current device, by the CUDA runtime's occupancy calculator: K5/K6 launch
+  that many blocks on every SM, or fewer for a small batch."""
+  blocks, threads = _I(0), _I(0)
+  _raise_on(_library().etx_bvh_fat_occupancy(int(any_hit), ctypes.byref(blocks),
+                                              ctypes.byref(threads)), "occupancy")
+  return blocks.value, threads.value
 
 
 def _intersect(name, plain, bvh, o, d, t_min, t_max, tri_mask) -> Hit:

@@ -213,8 +213,12 @@ def test_materials_render_goes_through_the_pair_tile_kernels_and_matches_cpu(cud
 
 
 def _bvh_case(rng, which, num_r, dev):
-  """(BVH, rays): bigscene's tree with rays from inside the room, or the
-  tree of a random 3000-triangle soup."""
+  """(BVH, rays): bigscene's tree with rays from inside the room, the tree
+  of a random 3000-triangle soup, or a comb 61 levels deep
+  (`chip_smoke.comb_tree`), whose fat walk pushes 60 stack entries."""
+  if which == "comb":
+    tris, bvh = chip_smoke.comb_tree(rng, 61, dev)
+    return bvh, chip_smoke.test_rays(rng, *tris, num_r, dev)
   if which == "bigscene":
     arrays, _ = bigscene.build_bigscene((16, 16)).arrays()
     rays = _case(rng, 36, num_r, dev)[3:]
@@ -251,6 +255,79 @@ def test_bvh_kernels_match_plain(cuda, form, which, masked):
   assert torch.equal(occ, getattr(bvh_trace, f"{occluded}_plain")(bvh, *rays, tri_mask=mask))
   assert torch.equal(occ, hit.found)
   assert 0.05 < hit.found.float().mean().item() < 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("which", ["bigscene", "soup", "comb"])
+@pytest.mark.parametrize("form", ["fat", "node"])
+def test_bvh_kernels_on_mixed_lanes_match_plain(cuda, form, which, masked):
+  rng = np.random.default_rng(500 + masked)
+  bvh, rays = _bvh_case(rng, which, 8193, cuda)
+  if form == "node":
+    bvh = scene_types.without_fat_rows(bvh)
+  num_t = bvh.prim_tris.shape[0]
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  closest, occluded = _BVH_KERNELS[form]
+  # dead lanes (empty intervals, which K5/K6 skip) among live ones,
+  # intervals that are not empty, strided rays: the patterns chip_smoke.py
+  # holds them on
+  for label, lane_rays in chip_smoke.lane_variants(rays).items():
+    hit = getattr(bvh_trace, closest)(bvh, *lane_rays, tri_mask=mask)
+    occ = getattr(bvh_trace, occluded)(bvh, *lane_rays, tri_mask=mask)
+    ref = getattr(bvh_trace, f"{closest}_plain")(bvh, *lane_rays, tri_mask=mask)
+    for got, want in zip(hit, ref):
+      assert torch.equal(got, want), label
+    assert torch.equal(occ, getattr(bvh_trace, f"{occluded}_plain")(bvh, *lane_rays,
+                                                                     tri_mask=mask)), label
+    assert torch.equal(occ, hit.found), label
+    assert not bool(hit.found[bvh_trace.dead_lanes(lane_rays[2], lane_rays[3])].any()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_r", [300, 70001])
+def test_fat_kernels_back_to_back_on_one_stream_give_equal_outputs(cuda, num_r):
+  # the second launch finds the ray queue's counter reset by its own entry
+  rng = np.random.default_rng(600 + num_r)
+  bvh, rays = _bvh_case(rng, "bigscene", num_r, cuda)
+  hits = [bvh_trace.intersect_fat(bvh, *rays) for _ in range(2)]
+  occs = [bvh_trace.occluded_fat(bvh, *rays) for _ in range(2)]
+  torch.cuda.synchronize()
+  ref = bvh_trace.intersect_fat_plain(bvh, *rays)
+  for hit in hits:
+    for got, want in zip(hit, ref):
+      assert torch.equal(got, want)
+  for occ in occs:
+    assert torch.equal(occ, ref.found)
+
+
+@pytest.mark.cuda
+def test_fat_kernels_replay_in_a_cuda_graph(cuda):
+  rng = np.random.default_rng(13)
+  bvh, rays = _bvh_case(rng, "bigscene", 70001, cuda)
+  want = bvh_trace.intersect_fat(bvh, *rays)
+  want_occ = bvh_trace.occluded_fat(bvh, *rays)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      bvh_trace.intersect_fat(bvh, *rays)
+      bvh_trace.occluded_fat(bvh, *rays)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    hit = bvh_trace.intersect_fat(bvh, *rays)
+    occ = bvh_trace.occluded_fat(bvh, *rays)
+  for _ in range(2):
+    for x in (hit.t, hit.u, hit.v):
+      x.fill_(-7.0)
+    hit.tri.fill_(-7)
+    occ.fill_(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, expected in zip(hit, want):
+      assert torch.equal(got, expected)
+    assert torch.equal(occ, want_occ)
 
 
 @pytest.mark.cuda
