@@ -13,8 +13,13 @@ Phases, one line each with its elapsed seconds:
      scene's 996 and bigscene's 15,396 triangles (the kernels take any
      count; the dispatch sends them at most 128), with and without masked
      rows; rays include axis-parallel ones, rays aimed at shared edges and
-     vertices, and rays with t_max = -1. Times each kernel and its plain
-     version at 2^18 rays x 36 triangles, and K1's at 2^16 rays x 15,396;
+     vertices, and rays with t_max = -1; on the tables of at most 1,024
+     triangles also under the eight lane patterns of phase 5. Times each
+     kernel and its plain version at 2^18 rays x 36 triangles, and K1's at
+     2^16 rays x 15,396, with each launch's blocks per SM, rays a block and
+     waves; then holds both against their plain versions on narrow batches
+     of 2^12, 2^14 and 2^16 live rays against the Cornell triangles and
+     times them there, with their launch shape;
   5. K3 pair-tile closest hit and 6. K4 pair-tile any hit: the same checks
      on 2^18 rays against the materials scene's 996 triangles, random
      4096- and 4097-triangle soups, a 129-triangle soup, the Cornell
@@ -49,7 +54,10 @@ Phases, one line each with its elapsed seconds:
      `render_samples_static` and `finalize_film` (what `path_tracing.render`
      runs), with every kernel launch counted; then one iteration of it under
      the profiler, to show where a bounce's time goes and each trace
-     kernel's device time per launch;
+     kernel's device time per launch; then the closest-hit and shadow rays
+     of bounce 2 of one more iteration, captured as the main path traces
+     them (dead lanes at t_max = 0), with K1 and K2 held against their plain
+     versions and timed on them, beside their live share and bound;
   14. main path, materials: the spectral materials showcase (996 triangles:
      Diffuse, Conductor, Dielectric and Thinfilm) at 512x512, max path
      length 16, a 2^18-lane pool and 8 iterations, counted and profiled the
@@ -137,6 +145,11 @@ FEW_RAYS = 1 << 16
 # rays of a BVH kernel's lane patterns: the plain walk's time grows with its
 # longest walk, about a second a call on the card
 BVH_LANE_RAYS = 1 << 14
+# K1/K2's lane patterns run on tables of at most this many triangles: their
+# plain versions loop over the triangles, seconds a call at 15,396
+BRUTE_LANE_TRIS = 1024
+# the narrow batches K1/K2 are held and timed on: the cascade's phase widths
+NARROW = (1 << 12, 1 << 14, 1 << 16)
 ITERATIONS = 64  # Cornell main-path samples per pixel: one chunk of the JAX package's bench
 # materials main path: one `_pt_mrays` call of the JAX package's bench
 MATERIALS_ITERATIONS = 8
@@ -192,18 +205,21 @@ def kernel_ms(fn, kernel_name: str, reps: int) -> float:
   from the profiler's trace of `reps` calls: each such kernel's mean time per
   launch, summed (K6 launches two a call, its pack and walk kernels). A mean
   per launch, not a total over the calls: the profiler may drop some of a
-  trace's kernel records."""
+  trace's kernel records (and a trace with none is taken again, up to three
+  times)."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  per_launch = [ev.device_time_total / ev.count for ev in prof.key_averages()
-                if kernel_name in ev.key and ev.count > 0 and ev.device_time_total > 0.0]
-  check(len(per_launch) > 0, f"the profiler recorded no {kernel_name} launch")
-  return sum(per_launch) / 1e3
+  for _ in range(3):  # a trace that lost every record is taken again
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    per_launch = [ev.device_time_total / ev.count for ev in prof.key_averages()
+                  if kernel_name in ev.key and ev.count > 0 and ev.device_time_total > 0.0]
+    if per_launch:
+      return sum(per_launch) / 1e3
+  raise AssertionError(f"the profiler recorded no {kernel_name} launch in three traces")
 
 
 def bound_ms(ops: int, nbytes: int):
@@ -336,10 +352,9 @@ def needs_pairs(t_min, t_max):
   return ~brute2_trace.dead_lanes(t_min, t_max)
 
 
-def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, mask=None) -> int:
-  """Ray-triangle pairs an any-hit loop that stops at the first hit (K2)
-  needs."""
-  live = needs_pairs(t_min, t_max)
+def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, live, mask=None) -> int:
+  """Ray-triangle pairs an any-hit loop over the triangles in index order
+  that stops at the first hit needs, for the rays `live` (K2's)."""
   first = torch.full_like(t_max, float(v0.shape[0]))
   for ti in reversed(range(v0.shape[0])):
     if mask is not None and not bool(mask[ti]):
@@ -484,16 +499,17 @@ def work(name, geometry, rays):
               + bvh.prim_tris.shape[0] * 40)
     counted = {"rows" if fat else "nodes": rows, "tris": tri_tests, "live rays": n_live}
     return ops, nbytes, counted, walk_line(stats["ray_rows"], stats["ray_tris"], fat)
-  live = int(needs_pairs(rays[2], rays[3]).sum().item())
+  live_mask = live_lanes(name, rays)
+  live = int(live_mask.sum().item())
   t_tri = tris[0].shape[0]
   if entry == "intersect":
     pairs = live * t_tri
   elif mod is brute_trace:
-    pairs = first_hit_pairs(*tris, *rays)
+    pairs = first_hit_pairs(*tris, *rays, live_mask)
   else:
     pairs = first_hit_pairs_chunked(mod, *tris, *rays)
   nbytes = num_r * (32 + out_bytes) + t_tri * TRI_BYTES[mod]
-  return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs}, None
+  return pairs * FLOPS_PER_PAIR[mod], nbytes, {"pairs": pairs, "live rays": live}, None
 
 
 def walk_line(ray_rows, ray_tris, fat: bool) -> str:
@@ -515,10 +531,14 @@ def walk_line(ray_rows, ray_tris, fat: bool) -> str:
 
 def live_lanes(name, rays):
   """(R,) bool: the rays that need work of kernel `name`: for K5-K8 those
-  whose interval is not empty (K5/K6 skip the others), for the triangle
-  kernels those that the pair-tile kernels' skip test finds not dead."""
-  if KERNELS[name][0] is bvh_trace:
+  whose interval is not empty (K5/K6 skip the others), for K1/K2 those that
+  their own skip test finds not dead, for the other triangle kernels those
+  that the pair-tile kernels' skip test finds not dead."""
+  mod = KERNELS[name][0]
+  if mod is bvh_trace:
     return ~bvh_trace.dead_lanes(rays[2], rays[3])
+  if mod is brute_trace:
+    return ~brute_trace.dead_lanes(rays[2], rays[3])
   return needs_pairs(rays[2], rays[3])
 
 
@@ -556,9 +576,14 @@ def compare(name, geometry, rays, mask):
 
 
 def occupancy_note(name, num_t, num_r):
-  """Blocks per SM and waves of a pair-tile kernel for this shape, or the
+  """Blocks per SM and waves of a K1-K4 launch for this shape, or the
   persistent grid of K5/K6."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
+  if KERNELS[name][0] is brute_trace:
+    blocks, tile = brute_trace.launch_shape(num_t, num_r, name not in CLOSEST)
+    grid = -(-num_r // tile)
+    return (f"{blocks} blocks of 256 threads per SM, {tile} rays a block, {grid} blocks in "
+            f"{grid / (blocks * sms):.2f} waves of {blocks * sms}")
   if KERNELS[name][0] is bvh_trace:
     blocks, threads = bvh_trace.fat_occupancy(name not in CLOSEST)
     grid = min(blocks * sms, -(-num_r // threads))
@@ -578,7 +603,7 @@ def kernel_phase(name, dev, rng, cases, timed):
   (tris, bvh), origin box or None, rays)."""
   kname = KERNELS[name][2]
   mod = KERNELS[name][0]
-  lanes = mod in (brute2_trace, bvh_trace)
+  lanes = mod in (brute_trace, brute2_trace, bvh_trace)
   persistent = name in ("intersect_bvh_fat", "occluded_bvh_fat")
   err = 0.0
   for label, geometry, inside, num_r in cases:
@@ -590,10 +615,10 @@ def kernel_phase(name, dev, rng, cases, timed):
       err = max(err, e)
       say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
-      if not lanes:
+      if not lanes or (mod is brute_trace and tris[0].shape[0] > BRUTE_LANE_TRIS):
         continue
       fracs = []
-      n_lane = FEW_RAYS if mod is brute2_trace else BVH_LANE_RAYS
+      n_lane = BVH_LANE_RAYS if mod is bvh_trace else FEW_RAYS
       for variant, lane_rays in lane_variants(rays, n_lane).items():
         e, frac = compare(name, geometry, lane_rays, mask)
         err = max(err, e)
@@ -616,10 +641,29 @@ def kernel_phase(name, dev, rng, cases, timed):
         f"from {counted}, {nbytes} bytes)")
     if per_ray is not None:
       say(name, f"per-ray work ({label}, plain walk): {per_ray}")
-    if mod is brute2_trace or persistent:
+    if mod in (brute_trace, brute2_trace) or persistent:
       say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
   return {"max_abs_err": err, **rows[0]}
+
+
+def narrow_phase(name, geometry, dev, rng):
+  """K1 or K2 on the cascade's narrow batches: 2^12, 2^14 and 2^16 test rays
+  with every interval opened (t_max = 1e30 where the skip test found the
+  ray dead), held against the plain version and timed, with the launch
+  shape."""
+  for num_r in NARROW:
+    o, d, t_min, t_max = test_rays(rng, *geometry[0], num_r, dev)
+    rays = (o, d, t_min, torch.where(brute_trace.dead_lanes(t_min, t_max), 1e30, t_max))
+    e, frac = compare(name, geometry, rays, None)
+    run = kernel_call(name, geometry)
+    ms = kernel_ms(lambda: run(*rays), KERNELS[name][2], 50)
+    ops, nbytes, counted, _ = work(name, geometry, rays)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    say(name, f"narrow batch of {num_r} live rays x {geometry[0][0].shape[0]} tris (hit "
+        f"fraction {frac:.4f}): matches the plain version; kernel {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({counted}); "
+        + occupancy_note(name, geometry[0][0].shape[0], num_r))
 
 
 def check_thirds(img, what):
@@ -991,6 +1035,12 @@ def main() -> int:
   results = {
       "intersect": kernel_phase("intersect", dev, rng, small, [small[0], big_k1]),
       "occluded": kernel_phase("occluded", dev, rng, small, small[:1]),
+  }
+  # a generator of its own, so the later phases draw the rays they drew before
+  narrow_rng = np.random.default_rng(20261018)
+  for name in ("intersect", "occluded"):
+    narrow_phase(name, cornell_geo, dev, narrow_rng)
+  results |= {
       "intersect_brute2": kernel_phase("intersect_brute2", dev, rng, pair_tile,
                                        [pair_tile[0], pair_tile[-1]]),
       "occluded_brute2": kernel_phase("occluded_brute2", dev, rng, pair_tile, pair_tile[:1]),
@@ -1005,6 +1055,7 @@ def main() -> int:
 
   counts = main_path_cornell(*cornell_512, dev)
   profile_step_mix("cornell 512x512", *cornell_512, dev)
+  captured_phase("cornell", ("intersect", "occluded"), *cornell_512, dev)
   counts_mat = main_path_materials(*materials_512, dev)
   profile_step_mix("materials 512x512", *materials_512, dev)
   captured_phase("materials", ("intersect_brute2", "occluded_brute2"), *materials_512, dev)

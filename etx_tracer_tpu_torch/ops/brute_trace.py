@@ -13,6 +13,11 @@ launches the kernel or raises. The plain versions mirror
 by expression; the CPU tests hold them against the JAX package and
 `chip_smoke.py` holds each kernel against them on the card.
 
+The kernels skip a ray that can have no valid pair (`dead_lanes`: an
+empty or NaN interval, or t_max < 0, as the main path's dead lanes and
+missing shadow rays have) and write its miss at once; the plain versions
+test it and find no valid pair, so the outputs are the same.
+
 The trace dispatch (`ops/trace.py`) sends scenes of at most 128 triangles
 here, as the JAX package does; the kernels, like the TPU kernels, take any
 count (the micro-benchmark runs K1 on bigscene's 15,396 triangles).
@@ -47,6 +52,15 @@ class Hit(NamedTuple):
 
 
 # --------------------------------------------------------------- plain versions
+
+
+def dead_lanes(t_min, t_max):
+  """The kernels' skip test, (R,) bool: !(t_min <= t_max) or t_max < 0,
+  compared in float32 as the kernels compare. No rounded t satisfies both
+  t >= t_min and t <= t_max when t_max < t_min or a bound is NaN, and the
+  plain versions drop a ray with t_max < 0 (the proof is in
+  csrc/brute_trace.cu)."""
+  return ~(t_min <= t_max) | (t_max < 0.0)
 
 
 def _tri_rows(tri_v0, tri_e1, tri_e2, tri_mask):
@@ -124,17 +138,26 @@ _COMMON = [_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I]
 _lib = None
 
 
+def bind(lib):
+  """Sets the argument and result types of a built `csrc/brute_trace.cu`
+  library's entries and returns it; an earlier source's library, which may
+  lack `etx_brute_launch_shape`, binds too."""
+  lib.etx_brute_intersect.argtypes = _COMMON + [_P, _P, _P, _P, _P]
+  lib.etx_brute_intersect.restype = _I
+  lib.etx_brute_occluded.argtypes = _COMMON + [_P, _P]
+  lib.etx_brute_occluded.restype = _I
+  if hasattr(lib, "etx_brute_launch_shape"):
+    lib.etx_brute_launch_shape.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.etx_brute_launch_shape.restype = _I
+  lib.etx_cuda_error_string.argtypes = [_I]
+  lib.etx_cuda_error_string.restype = ctypes.c_char_p
+  return lib
+
+
 def _library():
   global _lib
   if _lib is None:
-    lib = _build.load("brute_trace")
-    lib.etx_brute_intersect.argtypes = _COMMON + [_P, _P, _P, _P, _P]
-    lib.etx_brute_intersect.restype = _I
-    lib.etx_brute_occluded.argtypes = _COMMON + [_P, _P]
-    lib.etx_brute_occluded.restype = _I
-    lib.etx_cuda_error_string.argtypes = [_I]
-    lib.etx_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib = bind(_build.load("brute_trace"))
   return _lib
 
 
@@ -165,9 +188,9 @@ def _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, what="brute-for
   return num_t, num_r
 
 
-def _raise_on(rc: int, what: str):
+def _raise_on(rc: int, what: str, lib=None):
   if rc != 0:
-    msg = _library().etx_cuda_error_string(rc).decode()
+    msg = (lib or _library()).etx_cuda_error_string(rc).decode()
     raise RuntimeError(f"brute_trace {what} kernel launch failed: {msg} (cudaError {rc})")
 
 
@@ -179,27 +202,48 @@ def _common_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, num_t, nu
           t_min.data_ptr(), t_max.data_ptr(), num_r]
 
 
+def launch_with(lib, entry, tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None):
+  """K1 (entry "intersect": a Hit) or K2 ("occluded": (R,) bool) of a bound
+  library (`bind`) on CUDA tensors, on the current stream; counts no
+  launch. `intersect` and `occluded` call it with this source's library."""
+  num_t, num_r = _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
+  dev = o.device
+  if entry == "intersect":
+    outs = [torch.empty(num_r, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+  else:
+    outs = [torch.empty(num_r, dtype=torch.bool, device=dev)]
+  if num_r > 0:
+    with torch.cuda.device(dev):
+      stream = torch.cuda.current_stream(dev).cuda_stream
+      fn = lib.etx_brute_intersect if entry == "intersect" else lib.etx_brute_occluded
+      rc = fn(*_common_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, num_t, num_r),
+              *(x.data_ptr() for x in outs), stream)
+    _raise_on(rc, entry, lib)
+  return Hit(*outs) if entry == "intersect" else outs[0]
+
+
+def launch_shape(num_t: int, num_r: int, any_hit: bool) -> tuple[int, int]:
+  """(blocks per SM, rays a block) of K2 (any_hit) or K1 for num_r rays
+  against num_t triangles on the current device: each block of 256
+  threads takes that many consecutive rays, and the launch has
+  ceil(num_r / rays a block) blocks."""
+  blocks, tile = _I(0), _I(0)
+  _raise_on(_library().etx_brute_launch_shape(num_t, num_r, int(any_hit), ctypes.byref(blocks),
+                                              ctypes.byref(tile)), "launch shape")
+  return blocks.value, tile.value
+
+
 def intersect(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> Hit:
   """Closest hit of each ray: Hit(t, tri, u, v). K1 on CUDA tensors, the
   plain version on CPU tensors."""
   if o.device.type == "cpu":
     return intersect_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  num_t, num_r = _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  t = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  tri = torch.empty(num_r, dtype=torch.int32, device=o.device)
-  u = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  v = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  if num_r == 0:
-    return Hit(t, tri, u, v)
-  lib = _library()
-  with torch.cuda.device(o.device):
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    rc = lib.etx_brute_intersect(
-        *_common_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, num_t, num_r),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
-  _raise_on(rc, "intersect")
-  launches["intersect"] += 1
-  return Hit(t, tri, u, v)
+  hit = launch_with(_library(), "intersect", tri_v0, tri_e1, tri_e2, o, d, t_min, t_max,
+                    tri_mask)
+  if o.shape[0] > 0:
+    launches["intersect"] += 1
+  return hit
 
 
 def occluded(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> torch.Tensor:
@@ -207,16 +251,8 @@ def occluded(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> torch
   version on CPU tensors."""
   if o.device.type == "cpu":
     return occluded_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  num_t, num_r = _check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  occ = torch.empty(num_r, dtype=torch.bool, device=o.device)
-  if num_r == 0:
-    return occ
-  lib = _library()
-  with torch.cuda.device(o.device):
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    rc = lib.etx_brute_occluded(
-        *_common_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask, num_t, num_r),
-        occ.data_ptr(), stream)
-  _raise_on(rc, "occluded")
-  launches["occluded"] += 1
+  occ = launch_with(_library(), "occluded", tri_v0, tri_e1, tri_e2, o, d, t_min, t_max,
+                    tri_mask)
+  if o.shape[0] > 0:
+    launches["occluded"] += 1
   return occ

@@ -120,6 +120,74 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("num_t", [1, 36, 128, 129, 1100, 15396])
+def test_brute_kernels_on_mixed_lanes_match_plain(cuda, num_t, masked):
+  rng = np.random.default_rng(700 + num_t + masked)
+  args = _case(rng, num_t, 8193, cuda)
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  tris = args[:3]
+  # dead lanes (which K1/K2 skip) among live ones, intervals that are not
+  # empty, strided rays: the patterns chip_smoke.py holds them on
+  for label, rays in chip_smoke.lane_variants(args[3:]).items():
+    hit = brute_trace.intersect(*tris, *rays, tri_mask=mask)
+    occ = brute_trace.occluded(*tris, *rays, tri_mask=mask)
+    ref = brute_trace.intersect_plain(*tris, *rays, tri_mask=mask)
+    for got, want in zip(hit, ref):
+      assert torch.equal(got, want), label
+    assert torch.equal(occ, brute_trace.occluded_plain(*tris, *rays, tri_mask=mask)), label
+    assert torch.equal(occ, hit.found), label
+    assert not bool(hit.found[brute_trace.dead_lanes(rays[2], rays[3])].any()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_r", [300, 4096, 16384, 65536])
+def test_brute_kernels_on_batches_of_every_width_match_plain(cuda, num_r):
+  # a narrow batch runs small tiles and several lanes a ray; every other
+  # ray is dead, so each tile packs half its rays
+  rng = np.random.default_rng(800 + num_r)
+  v0, e1, e2, o, d, t_min, t_max = _case(rng, 36, num_r, cuda)
+  t_max[::2] = 0.0
+  hit = brute_trace.intersect(v0, e1, e2, o, d, t_min, t_max)
+  ref = brute_trace.intersect_plain(v0, e1, e2, o, d, t_min, t_max)
+  for got, want in zip(hit, ref):
+    assert torch.equal(got, want)
+  assert torch.equal(brute_trace.occluded(v0, e1, e2, o, d, t_min, t_max),
+                     brute_trace.occluded_plain(v0, e1, e2, o, d, t_min, t_max))
+  blocks, tile = brute_trace.launch_shape(36, num_r, False)
+  assert blocks >= 1 and tile in (8, 16, 32, 64, 128, 256)
+
+
+@pytest.mark.cuda
+def test_brute_kernels_replay_in_a_cuda_graph(cuda):
+  rng = np.random.default_rng(14)
+  args = _case(rng, 36, 70001, cuda)
+  want = brute_trace.intersect(*args)
+  want_occ = brute_trace.occluded(*args)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      brute_trace.intersect(*args)
+      brute_trace.occluded(*args)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    hit = brute_trace.intersect(*args)
+    occ = brute_trace.occluded(*args)
+  for _ in range(2):
+    for x in (hit.t, hit.u, hit.v):
+      x.fill_(-7.0)
+    hit.tri.fill_(-7)
+    occ.fill_(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, expected in zip(hit, want):
+      assert torch.equal(got, expected)
+    assert torch.equal(occ, want_occ)
+
+
+@pytest.mark.cuda
 def test_small_render_goes_through_the_kernels_and_matches_cpu(cuda):
   for key in brute_trace.launches:
     brute_trace.launches[key] = 0
