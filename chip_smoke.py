@@ -44,9 +44,13 @@ Phases, one line each with its elapsed seconds:
      blocks per SM and persistent grid;
   11. K9a Woop closest hit and 12. K9b Woop any hit: the same checks on
      2^18 rays against the materials (996), caustics (1,060) and bigscene
-     (dense, 15,396) scenes and the 4096- and 129-triangle soups; timed, with
-     the plain version, at 2^18 rays x 996 triangles, K9a also x 15,396; then,
-     for comparison only, the time of the FP32 `torch.matmul` of the
+     (dense, 15,396) scenes and the 4096- and 129-triangle soups, and on
+     2^16 of those rays under the eight lane patterns (all but bigscene);
+     timed, with the plain version, at 2^18 rays x 996 triangles, K9a also
+     x 15,396, with each launch's blocks per SM and waves; then both held
+     against their plain versions and timed on narrow batches of 2^12 and
+     2^14 live rays against the materials scene; then, for comparison only,
+     the time of the FP32 `torch.matmul` of the
      (R, 8) x (8, 6 x 512) products that the TPU kernel hands to its matrix
      unit;
   13. main path, Cornell: the diffuse Cornell box at 512x512, max path
@@ -148,8 +152,12 @@ BVH_LANE_RAYS = 1 << 14
 # K1/K2's lane patterns run on tables of at most this many triangles: their
 # plain versions loop over the triangles, seconds a call at 15,396
 BRUTE_LANE_TRIS = 1024
+# ... and K9a/K9b's on tables of at most this many (all but bigscene's)
+WOOP_LANE_TRIS = 4096
 # the narrow batches K1/K2 are held and timed on: the cascade's phase widths
 NARROW = (1 << 12, 1 << 14, 1 << 16)
+# ... and K9a/K9b's, against the materials scene
+WOOP_NARROW = (1 << 12, 1 << 14)
 ITERATIONS = 64  # Cornell main-path samples per pixel: one chunk of the JAX package's bench
 # materials main path: one `_pt_mrays` call of the JAX package's bench
 MATERIALS_ITERATIONS = 8
@@ -345,13 +353,6 @@ def bigscene_scene(film, dev, fat_rows=True):
   return scene, config
 
 
-def needs_pairs(t_min, t_max):
-  """(R,) bool: the rays that need their pairs tested. A ray that the
-  pair-tile kernels' skip test finds dead (t_max <= 0 < 1e-30 < t_min) has
-  no valid pair and needs none, whichever kernel traces it."""
-  return ~brute2_trace.dead_lanes(t_min, t_max)
-
-
 def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, live, mask=None) -> int:
   """Ray-triangle pairs an any-hit loop over the triangles in index order
   that stops at the first hit needs, for the rays `live` (K2's)."""
@@ -366,9 +367,10 @@ def first_hit_pairs(v0, e1, e2, o, d, t_min, t_max, live, mask=None) -> int:
 
 
 def first_hit_pairs_chunked(mod, v0, e1, e2, o, d, t_min, t_max) -> int:
-  """Ray-triangle pairs K4's or K9b's any-hit loop tests: up to each live
-  ray's first valid pair, by the kernel's own validity test (`mod._pairs`),
-  one 512-triangle chunk at a time."""
+  """Ray-triangle pairs K4's or K9b's any-hit loop tests: up to each ray's
+  first valid pair, by the kernel's own validity test (`mod._pairs`), one
+  512-triangle chunk at a time, for the rays that its skip test
+  (`mod.dead_lanes`) does not find dead."""
   if mod is woop_trace:
     tab = woop_trace.woop_tables(v0, e1, e2)
     valid = lambda c, ray: woop_trace._pairs(tab[c], ray)[0]
@@ -384,7 +386,7 @@ def first_hit_pairs_chunked(mod, v0, e1, e2, o, d, t_min, t_max) -> int:
       rev = torch.arange(width, 0, -1, device=o.device)   # width - j: the first wins
       at = s + width - (ok * rev).amax(dim=1)             # first valid index
       first = torch.minimum(first, torch.where(ok.any(dim=1), at + 1, num_t))
-    total += int(torch.where(needs_pairs(t_min[sl], t_max[sl]), first, 0).sum().item())
+    total += int(torch.where(mod.dead_lanes(t_min[sl], t_max[sl]), 0, first).sum().item())
   return total
 
 
@@ -530,16 +532,10 @@ def walk_line(ray_rows, ray_tris, fat: bool) -> str:
 
 
 def live_lanes(name, rays):
-  """(R,) bool: the rays that need work of kernel `name`: for K5-K8 those
-  whose interval is not empty (K5/K6 skip the others), for K1/K2 those that
-  their own skip test finds not dead, for the other triangle kernels those
-  that the pair-tile kernels' skip test finds not dead."""
-  mod = KERNELS[name][0]
-  if mod is bvh_trace:
-    return ~bvh_trace.dead_lanes(rays[2], rays[3])
-  if mod is brute_trace:
-    return ~brute_trace.dead_lanes(rays[2], rays[3])
-  return needs_pairs(rays[2], rays[3])
+  """(R,) bool: the rays that need work of kernel `name`, those that its
+  module's skip test (`dead_lanes`) does not find dead: a dead ray has no
+  valid pair (the proofs are in the kernels' sources), so it needs no test."""
+  return ~KERNELS[name][0].dead_lanes(rays[2], rays[3])
 
 
 def lane_variants(rays, n: int = FEW_RAYS):
@@ -576,8 +572,8 @@ def compare(name, geometry, rays, mask):
 
 
 def occupancy_note(name, num_t, num_r):
-  """Blocks per SM and waves of a K1-K4 launch for this shape, or the
-  persistent grid of K5/K6."""
+  """Blocks per SM and waves of a K1-K4 or K9a/K9b launch for this shape, or
+  the persistent grid of K5/K6."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
   if KERNELS[name][0] is brute_trace:
     blocks, tile = brute_trace.launch_shape(num_t, num_r, name not in CLOSEST)
@@ -589,21 +585,22 @@ def occupancy_note(name, num_t, num_r):
     grid = min(blocks * sms, -(-num_r // threads))
     return (f"{blocks} blocks of {threads} threads per SM ({blocks * threads // 32} resident "
             f"warps), {grid} persistent blocks for {num_r} rays")
-  blocks = brute2_trace.occupancy(num_t, name not in CLOSEST)
-  grid = -(-num_r // brute2_trace.TILE_RAYS)
-  return (f"{blocks} blocks of {brute2_trace.TILE_RAYS} threads per SM, {grid} blocks in "
-          f"{grid / (blocks * sms):.2f} waves of {blocks * sms}")
+  mod = KERNELS[name][0]
+  blocks = mod.occupancy(num_t, name not in CLOSEST)
+  grid = -(-num_r // mod.TILE_RAYS)
+  return (f"{blocks} blocks of {mod.TILE_RAYS} threads per SM, {mod.TILE_RAYS} rays a block, "
+          f"{grid} blocks in {grid / (blocks * sms):.2f} waves of {blocks * sms}")
 
 
 def kernel_phase(name, dev, rng, cases, timed):
   """Hold one kernel against its plain version on every case (with and
-  without masked rows; a pair-tile or BVH kernel also under each lane
-  pattern of `lane_variants`), then time both on each case of `timed`; the
+  without masked rows, and under each lane pattern of `lane_variants`: K1/K2
+  on tables of at most 1,024 triangles, K9a/K9b of at most 4,096), then time
+  both on each case of `timed`; the
   first timed case is the one the `kernels` line reports. A case is (label,
   (tris, bvh), origin box or None, rays)."""
   kname = KERNELS[name][2]
   mod = KERNELS[name][0]
-  lanes = mod in (brute_trace, brute2_trace, bvh_trace)
   persistent = name in ("intersect_bvh_fat", "occluded_bvh_fat")
   err = 0.0
   for label, geometry, inside, num_r in cases:
@@ -615,7 +612,8 @@ def kernel_phase(name, dev, rng, cases, timed):
       err = max(err, e)
       say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
-      if not lanes or (mod is brute_trace and tris[0].shape[0] > BRUTE_LANE_TRIS):
+      if ((mod is brute_trace and tris[0].shape[0] > BRUTE_LANE_TRIS)
+          or (mod is woop_trace and tris[0].shape[0] > WOOP_LANE_TRIS)):
         continue
       fracs = []
       n_lane = BVH_LANE_RAYS if mod is bvh_trace else FEW_RAYS
@@ -641,20 +639,21 @@ def kernel_phase(name, dev, rng, cases, timed):
         f"from {counted}, {nbytes} bytes)")
     if per_ray is not None:
       say(name, f"per-ray work ({label}, plain walk): {per_ray}")
-    if mod in (brute_trace, brute2_trace) or persistent:
+    if mod is not bvh_trace or persistent:
       say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
   return {"max_abs_err": err, **rows[0]}
 
 
-def narrow_phase(name, geometry, dev, rng):
-  """K1 or K2 on the cascade's narrow batches: 2^12, 2^14 and 2^16 test rays
-  with every interval opened (t_max = 1e30 where the skip test found the
-  ray dead), held against the plain version and timed, with the launch
-  shape."""
-  for num_r in NARROW:
-    o, d, t_min, t_max = test_rays(rng, *geometry[0], num_r, dev)
-    rays = (o, d, t_min, torch.where(brute_trace.dead_lanes(t_min, t_max), 1e30, t_max))
+def narrow_phase(name, geometry, dev, rng, sizes=NARROW, inside=None):
+  """K1, K2, K9a or K9b on narrow batches (K1/K2: the cascade's 2^12, 2^14
+  and 2^16): test rays with every interval opened (t_max = 1e30 where the
+  kernel's skip test found the ray dead), held against the plain version
+  and timed, with the launch shape."""
+  dead_lanes = KERNELS[name][0].dead_lanes
+  for num_r in sizes:
+    o, d, t_min, t_max = test_rays(rng, *geometry[0], num_r, dev, inside)
+    rays = (o, d, t_min, torch.where(dead_lanes(t_min, t_max), 1e30, t_max))
     e, frac = compare(name, geometry, rays, None)
     run = kernel_call(name, geometry)
     ms = kernel_ms(lambda: run(*rays), KERNELS[name][2], 50)
@@ -1051,6 +1050,8 @@ def main() -> int:
       "intersect_woop": kernel_phase("intersect_woop", dev, rng, woop, [woop[0], woop[2]]),
       "occluded_woop": kernel_phase("occluded_woop", dev, rng, woop, woop[:1]),
   }
+  for name in ("intersect_woop", "occluded_woop"):
+    narrow_phase(name, mat_geo, dev, narrow_rng, WOOP_NARROW, ROOM)
   woop_matmul_note(dev)
 
   counts = main_path_cornell(*cornell_512, dev)

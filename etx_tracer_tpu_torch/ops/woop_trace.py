@@ -31,6 +31,15 @@ as the JAX package's does.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 builds the table (once per call, as the JAX wrapper does) and launches the
 kernel or raises. `launches` counts kernel launches (never plain calls).
+
+The kernels skip a ray whose interval is empty (`dead_lanes`: !(t_min <=
+t_max), NaN ends included) and write its miss at once, and K9a sends a pair
+of a ray with t_min > 0 to its division only when the sign bits of w_z and
+q_z differ (`sign_candidates`) and its t cannot exceed the ray's t_max or
+best t so far (a test by one fused multiply-add); the proofs are in
+`csrc/woop_trace.cu`. The plain versions test every pair of every ray; the
+CPU tests (`tests/test_torch_woop_lanes.py`) hold that no such test drops a
+pair that could win.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from etx_tracer_tpu_torch.ops.brute_trace import Hit
 
 CHUNK = 512                 # triangles per chunk, as the TPU kernel's _W_TC
 ROW = 12                    # r_u, b_u, r_v, b_v, r_w, b_w
+TILE_RAYS = 256             # rays per block of the kernels (one block a tile)
+MAX_ROWS = 1024             # table rows the kernels stage in shared memory at once
 _QZ_EPS = 1e-7              # |cos(direction, plane normal)| cutoff
 _DEGENERATE = 1e-18         # |e1 x e2|^2 at or below: no triangle
 
@@ -80,6 +91,27 @@ def woop_tables(tri_v0, tri_e1, tri_e2, tri_mask=None) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- plain versions
+
+
+def dead_lanes(t_min, t_max):
+  """The kernels' skip test, (R,) bool: !(t_min <= t_max), compared in
+  float32 as the kernels compare them. A valid pair needs t_min <= t <= t_max
+  on one t, so such a ray (NaN ends included) has none."""
+  return ~(t_min <= t_max)
+
+
+def sign_candidates(tab, ray):
+  """K9a's sign test, (R, C) bool for (R, 1) ray columns against (C, 12)
+  rows: |q_z| > 1e-7 and, where t_min > 0, the sign bits of w_z and q_z
+  unequal (read from the bits, as the kernel reads them); q_z and w_z as
+  `_pairs` forms them. A pair it rejects is never valid by `_pairs` (nor is
+  one with w_z = 0 and t_min > 0, which it keeps); only the tests call it."""
+  ox, oy, oz, dx, dy, dz, tmin, _ = ray
+  nx, ny, nz, nb = tab[:, 8], tab[:, 9], tab[:, 10], tab[:, 11]
+  wz = nx * ox + ny * oy + nz * oz + nb
+  qz = nx * dx + ny * dy + nz * dz
+  signs_differ = (wz.contiguous().view(torch.int32) ^ qz.contiguous().view(torch.int32)) < 0
+  return (torch.abs(qz) > _QZ_EPS) & (~(tmin > 0.0) | signs_differ)
 
 
 def _pairs(tab, ray):
@@ -160,37 +192,69 @@ _COMMON = [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I]
 _lib = None
 
 
+def bind(lib):
+  """Sets the argument and result types of a built `csrc/woop_trace.cu`
+  library's entries and returns it; an earlier source's library, which may
+  lack `etx_woop_occupancy`, binds too."""
+  lib.etx_woop_intersect.argtypes = _COMMON + [_P, _P, _P, _P, _P]
+  lib.etx_woop_intersect.restype = _I
+  lib.etx_woop_occluded.argtypes = _COMMON + [_P, _P]
+  lib.etx_woop_occluded.restype = _I
+  if hasattr(lib, "etx_woop_occupancy"):
+    lib.etx_woop_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.etx_woop_occupancy.restype = _I
+  lib.etx_woop_error_string.argtypes = [_I]
+  lib.etx_woop_error_string.restype = ctypes.c_char_p
+  return lib
+
+
 def _library():
   global _lib
   if _lib is None:
-    lib = _build.load("woop_trace")
-    lib.etx_woop_intersect.argtypes = _COMMON + [_P, _P, _P, _P, _P]
-    lib.etx_woop_intersect.restype = _I
-    lib.etx_woop_occluded.argtypes = _COMMON + [_P, _P]
-    lib.etx_woop_occluded.restype = _I
-    lib.etx_woop_error_string.argtypes = [_I]
-    lib.etx_woop_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib = bind(_build.load("woop_trace"))
   return _lib
 
 
-def _raise_on(rc: int, what: str):
+def _raise_on(lib, rc: int, what: str):
   if rc != 0:
-    msg = _library().etx_woop_error_string(rc).decode()
+    msg = lib.etx_woop_error_string(rc).decode()
     raise RuntimeError(f"woop_trace {what} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def _table_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask):
-  """Check the inputs and build the table: (num_r, the table, which must
-  outlive the launch, and the C arguments)."""
+def occupancy(num_t: int, any_hit: bool) -> int:
+  """Blocks of K9a (any_hit False) or K9b that one SM holds at once for a
+  table of num_t triangles (registers and shared memory decide), by the CUDA
+  runtime's occupancy calculator on the current device."""
+  lib, blocks = _library(), _I(0)
+  _raise_on(lib, lib.etx_woop_occupancy(num_t, int(any_hit), ctypes.byref(blocks)), "occupancy")
+  return blocks.value
+
+
+def launch_with(lib, entry, tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None):
+  """K9a (entry "intersect": a Hit) or K9b ("occluded": (R,) bool) of a
+  bound library (`bind`) on CUDA tensors, on the current stream, the table
+  built for the call; counts no launch. `intersect` and `occluded` call it
+  with this source's library."""
   num_t, num_r = brute_trace._check(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask,
                                     what="Woop")
-  tab = woop_tables(tri_v0, tri_e1, tri_e2, tri_mask)
+  tab = woop_tables(tri_v0, tri_e1, tri_e2, tri_mask)  # outlives the launch
   if tab.data_ptr() % 16:
     raise ValueError("the Woop table must be 16-byte aligned")
-  args = [tab.data_ptr(), num_t, o.data_ptr(), o.stride(0), o.stride(1),
-          d.data_ptr(), d.stride(0), d.stride(1), t_min.data_ptr(), t_max.data_ptr(), num_r]
-  return num_r, tab, args
+  dev = o.device
+  if entry == "intersect":
+    outs = [torch.empty(num_r, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+  else:
+    outs = [torch.empty(num_r, dtype=torch.bool, device=dev)]
+  if num_r > 0:
+    with torch.cuda.device(dev):
+      stream = torch.cuda.current_stream(dev).cuda_stream
+      fn = lib.etx_woop_intersect if entry == "intersect" else lib.etx_woop_occluded
+      rc = fn(tab.data_ptr(), num_t, o.data_ptr(), o.stride(0), o.stride(1),
+              d.data_ptr(), d.stride(0), d.stride(1), t_min.data_ptr(), t_max.data_ptr(),
+              num_r, *(x.data_ptr() for x in outs), stream)
+    _raise_on(lib, rc, entry)
+  return Hit(*outs) if entry == "intersect" else outs[0]
 
 
 def intersect(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> Hit:
@@ -198,21 +262,11 @@ def intersect(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> Hit:
   plain version on CPU tensors."""
   if o.device.type == "cpu":
     return intersect_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  num_r, tab, args = _table_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  t = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  tri = torch.empty(num_r, dtype=torch.int32, device=o.device)
-  u = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  v = torch.empty(num_r, dtype=torch.float32, device=o.device)
-  if num_r == 0:
-    return Hit(t, tri, u, v)
-  lib = _library()
-  with torch.cuda.device(o.device):
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    rc = lib.etx_woop_intersect(*args, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-                                v.data_ptr(), stream)
-  _raise_on(rc, "intersect")
-  launches["intersect"] += 1
-  return Hit(t, tri, u, v)
+  hit = launch_with(_library(), "intersect", tri_v0, tri_e1, tri_e2, o, d, t_min, t_max,
+                    tri_mask)
+  if o.shape[0] > 0:
+    launches["intersect"] += 1
+  return hit
 
 
 def occluded(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> torch.Tensor:
@@ -220,14 +274,8 @@ def occluded(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> torch
   version on CPU tensors."""
   if o.device.type == "cpu":
     return occluded_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  num_r, tab, args = _table_args(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask)
-  occ = torch.empty(num_r, dtype=torch.bool, device=o.device)
-  if num_r == 0:
-    return occ
-  lib = _library()
-  with torch.cuda.device(o.device):
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    rc = lib.etx_woop_occluded(*args, occ.data_ptr(), stream)
-  _raise_on(rc, "occluded")
-  launches["occluded"] += 1
+  occ = launch_with(_library(), "occluded", tri_v0, tri_e1, tri_e2, o, d, t_min, t_max,
+                    tri_mask)
+  if o.shape[0] > 0:
+    launches["occluded"] += 1
   return occ

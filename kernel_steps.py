@@ -3,6 +3,7 @@ process on one NVIDIA GPU.
 
     python3 kernel_steps.py bvh [--parent DIR] [--sass DIR]
     python3 kernel_steps.py brute [--parent DIR] [--sass DIR]
+    python3 kernel_steps.py woop [--parent DIR] [--sass DIR]
 
 Each family builds its kernel source with the port's nvcc flags, all builds
 started together: this checkout's ("this tree"), variants of it made by
@@ -45,6 +46,27 @@ each kernel it counts the SASS of its loops: a loop whose body holds at
 least one pair's 45 FADD/FMUL is reported with its instructions, and with
 those over its pairs (FADD/FMUL over 45); a static count, which includes
 code the loop holds but seldom runs (a slow path).
+
+`woop`: K9a/K9b (`csrc/woop_trace.cu`). The variants: K9a without the sign
+test and the cull ("no sign test": every pair with |q_z| > 1e-7 is a
+candidate); K9a without the cull of candidates whose t must exceed the
+ray's t_max or its best so far ("no cull"); K9a with the sign test but no
+candidates handed across the warp: each lane runs its own ray's dear half
+as soon as its cheap half passes ("test at once", no cull); both kernels
+staging 512 rows a chunk, not 1,024 ("512 rows a chunk"); both bounded for
+3 blocks of 256 threads an SM, not 4 (85 registers, not 64: "3 blocks an
+SM"); K9a reading a candidate's ray from the block's staged rays, not by
+shuffles ("shared rays"); K9a walking the candidates of 64 rows at a time,
+two transposed words a lane ("64 rows a phase", also with 3 blocks an SM);
+K9b with a ray a half-warp and two rows a lane a step ("K9b two rays a
+warp"); K9b with the sign test before its division ("K9b sign test").
+Ray sets: the micro `trace_brute` group's 2^18 random rays against
+materials (996 triangles), caustics (1,060) and bigscene (15,396, dense);
+batches of 2^12, 2^14 and 2^16 live test rays from inside the room against
+materials. It prints the share of the pairs of each set's live rays that
+pass K9a's sign test (on the set's first 2^14 rays), and for each kernel
+the SASS of its loops whose body holds at least the 11 FADD/FMUL of one
+pair's q_z and w_z (instructions and FADD/FMUL of each, a static count).
 """
 
 from __future__ import annotations
@@ -62,7 +84,8 @@ import numpy as np
 import torch
 
 import chip_smoke
-from etx_tracer_tpu_torch.ops import _build, brute_trace, bvh_trace
+from etx_tracer_tpu_torch.benchmarks import micro
+from etx_tracer_tpu_torch.ops import _build, brute_trace, bvh_trace, woop_trace
 from etx_tracer_tpu_torch.scene import bigscene
 
 # the slab lines of csrc/bvh_trace.cu, and the sign-select slab that the
@@ -232,10 +255,10 @@ def named(funcs: dict, kernels) -> dict:
   return out
 
 
-def pair_loops(code) -> list:
-  """The loops of a function whose body holds a pair's FADD/FMUL: [(body
-  instructions, FADD/FMUL, instructions a pair)], by backward branches to
-  an address in the function."""
+def pair_loops(code, fp_per_pair: int = FP_PER_PAIR) -> list:
+  """The loops of a function whose body holds a pair's FADD/FMUL
+  (`fp_per_pair` of them): [(body instructions, FADD/FMUL, instructions a
+  pair)], by backward branches to an address in the function."""
   loops = []
   for at, (addr, ins) in enumerate(code):
     m = re.search(r"\bBRA\s+(?:\S+\s+)?(0x[0-9a-f]+)", ins)
@@ -243,8 +266,8 @@ def pair_loops(code) -> list:
       continue
     body = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
     fp = sum(1 for i in body if re.match(r"(@\S+\s+)?F(ADD|MUL)\b", i))
-    if fp >= FP_PER_PAIR:
-      pairs = max(1, round(fp / FP_PER_PAIR))
+    if fp >= fp_per_pair:
+      pairs = max(1, round(fp / fp_per_pair))
       loops.append((len(body), fp, len(body) / pairs))
   return sorted(set(loops))
 
@@ -440,10 +463,10 @@ def brute_plain(kind: str, tris, rays):
   return [brute_trace.occluded_plain(*tris, *rays)]
 
 
-def all_live(rays):
+def all_live(rays, dead_lanes=brute_trace.dead_lanes):
   """The rays with every dead lane's interval opened to [t_min, 1e30]."""
   o, d, t_min, t_max = rays
-  return o, d, t_min, torch.where(brute_trace.dead_lanes(t_min, t_max), 1e30, t_max)
+  return o, d, t_min, torch.where(dead_lanes(t_min, t_max), 1e30, t_max)
 
 
 def brute_ray_sets(rng, scene, config, dev):
@@ -510,6 +533,275 @@ def brute_main(args, dev, out_dir: Path) -> None:
   time_in_turns(libs, sets, brute_call, "brute_intersect_kernel", {"closest": "K1", "anyhit": "K2"})
 
 
+# ------------------------------------------------------------------ K9a/K9b
+
+
+WOOP_KERNELS = (("woop_kernelILb0E", "K9a"), ("woop_kernelILb1E", "K9b"))
+
+
+def woop_variants(src: str) -> dict:
+  """{label: [(old, new)]}: the K9a/K9b variants, as edits of the source
+  text `src` (csrc/woop_trace.cu); the longer pieces are cut from it."""
+
+  def text(first: str, last: str) -> str:
+    """src from the line that starts with `first` up to and including the
+    line that starts with `last`."""
+    a = src.index(first)
+    b = src.index("\n", src.index(last, a)) + 1
+    return src[a:b]
+
+  keep = "        const bool keep = (fabsf(qz) > kQzEps) & !beyond(wz, qz, cut);\n"
+  no_cull = [(keep, "        const bool keep = fabsf(qz) > kQzEps;\n")]
+  no_sign = no_cull + [("  const unsigned no_test = full ? 0x80000000u : 0u;",
+                        "  const unsigned no_test = 0x80000000u;")]
+  # each lane runs its own ray's dear half as soon as the cheap half passes
+  # (no cull): the warp runs it while any lane has a candidate
+  at_once = [(text("    unsigned mask = 0;  // bit 31 - j",
+                        "        if (lane == kk && (tt < bt"), """\
+    const float4* p = rows + 3 * base;
+    for (int j = 0; j < 32 && has; ++j) {
+      float wz, qz, tt, uu, vv;
+      z_terms(p[3 * j + 2], r, wz, qz);
+      const int tri = s + base + j;
+      if ((fabsf(qz) > kQzEps) & ((int)sign_word(wz, qz, no_test) < 0) &&
+          dear_half(p[3 * j], p[3 * j + 1], wz, qz, r, tt, uu, vv)) {
+        if (tt < bt || (tt == bt && tri < bi)) {
+""")]
+  # K9a reads a candidate's ray from the block's staged rays (two LDS.128),
+  # not by eight shuffles from the ray's lane
+  shuffles = text("      Ray x;", "      x.tmax = __shfl_sync(kFull, r.tmax, k);")
+  shared_rays = [
+      ("  __shared__ float4 ray_o[kAnyHit ? kThreads : 1], ray_d[kAnyHit ? kThreads : 1];",
+       "  __shared__ float4 ray_o[kThreads], ray_d[kThreads];"),
+      ("    if (kAnyHit) {\n      const Ray ray = load_ray(rs, r);",
+       "    {\n      const Ray ray = load_ray(rs, r);"),
+      ("      resolved[slot] = 0;\n", "      if (kAnyHit) resolved[slot] = 0;\n"),
+      ("void closest_chunk(const float4* rows, int s, int padded, bool has,",
+       "void closest_chunk(const float4* rows, int s, int padded, bool has, const float4* ray_o,\n"
+       "                                              const float4* ray_d,"),
+      ("closest_chunk(rows, s, padded, has, ray, bt, bi, bu, bv);",
+       "closest_chunk(rows, s, padded, has, ray_o + warp * 32, ray_d + warp * 32, ray, bt, bi, bu,"
+       " bv);"),
+      (shuffles, "      const float4 o4 = ray_o[k], d4 = ray_d[k];\n"
+                 "      const Ray x{o4.x, o4.y, o4.z, d4.x, d4.y, d4.z, o4.w, d4.w};\n")]
+  # phase 2 walks the candidates of 64 rows at once, two transposed words a
+  # lane (rows base + lane and base + 32 + lane, read from shared memory at
+  # each step): the busiest lane's count is nearer the mean
+  phase = text("  for (int base = 0; base < padded; base += 32) {",
+                    "          bv = vv;")
+  phase_64 = """\
+  for (int base = 0; base < padded; base += 64) {
+    // a pair whose t exceeds t_max or the ray's best so far is dropped
+    const float cut = full ? INFINITY : next_up(fminf(r.tmax, bt));
+    unsigned rays[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned mask = 0;
+      const float4* p = rows + 3 * (base + 32 * h);
+      if (has && base + 32 * h < padded) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          float wz, qz;
+          z_terms(p[3 * j + 2], r, wz, qz);
+          const bool keep = (fabsf(qz) > kQzEps) & !beyond(wz, qz, cut);
+          mask |= keep ? (sign_word(wz, qz, no_test) & 0x80000000u) >> j : 0u;
+        }
+      }
+      rays[h] = transpose32(mask, lane);
+    }
+    const int steps = __reduce_max_sync(kFull, __popc(rays[0]) + __popc(rays[1]));
+    for (int it = 0; it < steps; ++it) {
+      const bool first = rays[0] != 0;
+      const unsigned word = first ? rays[0] : rays[1];
+      const bool take = word != 0;
+      const int k = take ? __clz(word) : lane;
+      if (first) {
+        rays[0] &= ~(0x80000000u >> k);
+      } else {
+        rays[1] &= ~(0x80000000u >> k);
+      }
+      const int row = base + (take && !first ? 32 : 0) + lane;
+      const float4* q = rows + 3 * row;
+      Ray x;
+      x.ox = __shfl_sync(kFull, r.ox, k);
+      x.oy = __shfl_sync(kFull, r.oy, k);
+      x.oz = __shfl_sync(kFull, r.oz, k);
+      x.dx = __shfl_sync(kFull, r.dx, k);
+      x.dy = __shfl_sync(kFull, r.dy, k);
+      x.dz = __shfl_sync(kFull, r.dz, k);
+      x.tmin = __shfl_sync(kFull, r.tmin, k);
+      x.tmax = __shfl_sync(kFull, r.tmax, k);
+      float wz, qz, t = 0.0f, u = 0.0f, v = 0.0f;
+      z_terms(q[2], x, wz, qz);
+      const bool ok = take && dear_half(q[0], q[1], wz, qz, x, t, u, v);
+      for (unsigned found = __ballot_sync(kFull, ok); found != 0; found &= found - 1) {
+        const int src = __ffs(found) - 1;
+        const int kk = __shfl_sync(kFull, k, src);
+        const float tt = __shfl_sync(kFull, t, src);
+        const float uu = __shfl_sync(kFull, u, src);
+        const float vv = __shfl_sync(kFull, v, src);
+        const int tri = s + __shfl_sync(kFull, row, src);
+        if (lane == kk && (tt < bt || (tt == bt && tri < bi))) {
+          bt = tt;
+          bi = tri;
+          bu = uu;
+          bv = vv;
+"""
+  k9b_eps = "  if (!(fabsf(qz) > kQzEps)) return false;\n"
+  # K9b gives each half-warp a ray of its own; a lane tests two rows a step
+  # (32 rows a ray a step, two independent chains), and a half whose ray is
+  # done takes the next one from the counter; every vote and shuffle runs
+  # on the whole warp
+  anyhit_loop = text("  for (;;) {\n    int j = 0;", "template <bool kAnyHit>")
+  two_rays = """\
+  const int hl = lane & 15, lead = lane & 16;
+  int j = 0, base = padded;  // base == padded: this half needs a ray
+  bool exhausted = false;
+  Ray ray{};
+  for (;;) {
+    const bool need = base >= padded && !exhausted;  // the same in a half
+    int got = 0;
+    if (need && hl == 0) {
+      do got = atomicAdd(next_ray, 1);
+      while (got < n && resolved[got]);  // occluded in an earlier chunk
+    }
+    got = __shfl_sync(kFull, got, lead);
+    if (need) {
+      j = got;
+      exhausted = j >= n;
+      if (!exhausted) {
+        const float4 o = ray_o[j], d = ray_d[j];
+        ray = Ray{o.x, o.y, o.z, d.x, d.y, d.z, o.w, d.w};
+        base = 0;
+      }
+    }
+    const bool active = !exhausted && base < padded;
+    if (!__any_sync(kFull, active)) break;
+    bool ok = false;
+    if (active) ok = pair_valid(rows + 3 * (base + hl), ray) | pair_valid(rows + 3 * (base + 16 + hl), ray);
+    const bool hit = ((__ballot_sync(kFull, ok) >> lead) & 0xffffu) != 0;
+    if (active) {
+      if (hit) {
+        if (hl == 0) {
+          resolved[j] = 1;
+          atomicAdd(num_resolved, 1);
+        }
+        base = padded;
+      } else {
+        base += 32;
+      }
+    }
+  }
+}
+
+template <bool kAnyHit>
+"""
+  return {
+      "no sign test": no_sign,
+      "no cull": no_cull,
+      "test at once": at_once,
+      "512 rows a chunk": [("constexpr int kMaxRows = 1024;", "constexpr int kMaxRows = 512;")],
+      "3 blocks an SM": [("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)")],
+      "shared rays": shared_rays,
+      "64 rows a phase": [(phase, phase_64)],
+      "64 rows, 3 blocks": [(phase, phase_64), ("__launch_bounds__(kThreads, 4)",
+                                                "__launch_bounds__(kThreads, 3)")],
+      "K9b two rays a warp": [(anyhit_loop, two_rays)],
+      "K9b sign test": [(k9b_eps, "  if (!((fabsf(qz) > kQzEps) &\n"
+                                  "        ((int)sign_word(wz, qz, r.tmin > 0.0f ? 0u : 0x80000000u) < 0)))\n"
+                                  "    return false;\n")],
+  }
+
+
+# FADD/FMUL of one pair's q_z and w_z, K9a's cheap half
+FP_CHEAP = 11
+
+
+def woop_call(lib, kind: str, tris, rays):
+  """K9a (kind 'closest') or K9b of a bound library: its outputs, a list."""
+  out = woop_trace.launch_with(lib, "intersect" if kind == "closest" else "occluded",
+                               *tris, *rays)
+  return list(out) if kind == "closest" else [out]
+
+
+def woop_plain(kind: str, tris, rays):
+  if kind == "closest":
+    return list(woop_trace.intersect_plain(*tris, *rays))
+  return [woop_trace.occluded_plain(*tris, *rays)]
+
+
+def candidate_share(tris, rays, n: int = 1 << 14) -> float:
+  """The share of the pairs of the first n rays' live ones that pass K9a's
+  sign test (`woop_trace.sign_candidates`; the cull, which depends on each
+  ray's best so far, is not counted)."""
+  tab = woop_trace.woop_tables(*tris)
+  live = ~woop_trace.dead_lanes(rays[2][:n], rays[3][:n])
+  o, d, t_min, t_max = (x[:n][live] for x in rays)
+  passed = 0
+  for _, ray in woop_trace._ray_tiles(o, d, t_min, t_max):
+    for s in range(0, tab.shape[0], woop_trace.CHUNK):
+      passed += int(woop_trace.sign_candidates(tab[s:s + woop_trace.CHUNK], ray).sum())
+  return passed / max(1, o.shape[0] * tab.shape[0])
+
+
+def woop_ray_sets(rng, dev):
+  """[(label, kind, triangles, rays)]: the sets every K9a/K9b build is
+  checked and timed on."""
+  sets = []
+  for name in micro.SCENES:
+    scn = micro.scene(name, str(dev))
+    tris = [scn.tri_v0, scn.tri_e1, scn.tri_e2]
+    rays = micro._rays(scn, micro.SIZES["trace_brute"], "random", dev)
+    label = f"2^18 micro random rays x {tris[0].shape[0]:,} ({name})"
+    sets += [(label, kind, tris, rays) for kind in ("closest", "anyhit")]
+    if name == "materials":
+      mat = tris
+  for k in (12, 14, 16):
+    rays = all_live(chip_smoke.test_rays(rng, *mat, 1 << k, dev, chip_smoke.ROOM),
+                    woop_trace.dead_lanes)
+    sets += [(f"2^{k} live test rays x 996", kind, mat, rays) for kind in ("closest", "anyhit")]
+  return sets
+
+
+def woop_main(args, dev, out_dir: Path) -> None:
+  src = _build.SRC_DIR / "woop_trace.cu"
+  srcs = {"this tree": src}
+  variants = woop_variants(src.read_text())
+  for label, edits in variants.items():
+    srcs[label] = variant(src, out_dir / f"woop_trace_{re.sub(r'[^a-z0-9]+', '_', label)}.cu",
+                          edits)
+  if args.parent is not None:
+    srcs = {"parent": args.parent / "etx_tracer_tpu_torch/csrc/woop_trace.cu", **srcs}
+  builds = {label: start_build(label, path, out_dir) for label, path in srcs.items()}
+  libs = {}
+  for label, (lib_path, _, procs) in builds.items():
+    log = finish_build(label, procs)
+    libs[label] = woop_trace.bind(ctypes.CDLL(str(lib_path)))
+    code = named(sass(lib_path, args.sass / f"{lib_path.stem}.sass" if args.sass else None),
+                 WOOP_KERNELS)
+    note = " | ".join(f"{k}: " + "; ".join(v)
+                      for k, v in sorted(ptxas_usage(log, WOOP_KERNELS).items()))
+    for k, ins in sorted(code.items()):
+      loops = ", ".join(f"{n} instructions with {fp} FADD/FMUL"
+                        for n, fp, _ in pair_loops(ins, FP_CHEAP))
+      note += f" | {k} SASS {len(ins)}; loops: {loops or 'none found'}"
+    if hasattr(libs[label], "etx_woop_occupancy"):
+      for any_hit in (False, True):
+        blocks = _I(0)
+        libs[label].etx_woop_occupancy(996, int(any_hit), ctypes.byref(blocks))
+        note += f" | {'K9b' if any_hit else 'K9a'} {blocks.value} blocks of 256 an SM at 996"
+    print(f"build {label}: {note}", flush=True)
+
+  sets = woop_ray_sets(np.random.default_rng(20261017), dev)
+  check_builds(libs, sets, woop_call, woop_plain, tuple(variants))
+  print_live(sets, woop_trace.dead_lanes)
+  for rays_label, kind, tris, rays in sets:
+    if kind == "closest":
+      print(f"rays {rays_label}: {candidate_share(tris, rays):.4f} of the live rays' pairs "
+            f"pass K9a's sign test", flush=True)
+  time_in_turns(libs, sets, woop_call, "woop_kernel", {"closest": "K9a", "anyhit": "K9b"})
+
+
 def print_live(sets, dead_lanes):
   """Each set's lanes and the share of them the kernels do not skip."""
   for rays_label, kind, _, rays in sets:
@@ -521,7 +813,7 @@ def print_live(sets, dead_lanes):
 
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  ap.add_argument("family", choices=("bvh", "brute"), help="K5/K6 or K1/K2")
+  ap.add_argument("family", choices=("bvh", "brute", "woop"), help="K5/K6, K1/K2 or K9a/K9b")
   ap.add_argument("--parent", type=Path, help="an earlier checkout (a git archive)")
   ap.add_argument("--sass", type=Path, help="directory for each library's SASS")
   args = ap.parse_args()
@@ -537,7 +829,7 @@ def main() -> int:
   if args.sass is not None:
     args.sass.mkdir(parents=True, exist_ok=True)
   t0 = time.perf_counter()
-  (bvh_main if args.family == "bvh" else brute_main)(args, dev, out_dir)
+  {"bvh": bvh_main, "brute": brute_main, "woop": woop_main}[args.family](args, dev, out_dir)
   print(f"kernel_steps {args.family}: {time.perf_counter() - t0:.1f} s", flush=True)
   return 0
 

@@ -462,6 +462,91 @@ def test_woop_kernels_match_plain(cuda, num_t, masked):
   assert 0.05 < hit.found.float().mean().item() < 0.99
 
 
+def _woop_matches_plain(tris, rays, mask=None, label=""):
+  """K9a and K9b once each on `rays`: each launch counted once, and both
+  bit-equal to their plain versions; returns the closest hits."""
+  before = dict(woop_trace.launches)
+  hit = woop_trace.intersect(*tris, *rays, tri_mask=mask)
+  occ = woop_trace.occluded(*tris, *rays, tri_mask=mask)
+  assert woop_trace.launches == {k: n + 1 for k, n in before.items()}, label
+  ref = woop_trace.intersect_plain(*tris, *rays, tri_mask=mask)
+  for got, want in zip(hit, ref):
+    assert got.dtype == want.dtype and torch.equal(got, want), label
+  assert torch.equal(occ, woop_trace.occluded_plain(*tris, *rays, tri_mask=mask)), label
+  assert torch.equal(occ, hit.found), label
+  return hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("num_t", [129, 996, 4096])
+def test_woop_kernels_on_mixed_lanes_match_plain(cuda, num_t, masked):
+  rng = np.random.default_rng(900 + num_t + masked)
+  args = _materials_case(rng, 8193, cuda) if num_t == 996 else _case(rng, num_t, 8193, cuda)
+  mask = torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda) if masked else None
+  # dead lanes (which the kernels skip) among live ones, intervals that are
+  # not empty, strided rays: the patterns chip_smoke.py holds them on
+  for label, rays in chip_smoke.lane_variants(args[3:]).items():
+    hit = _woop_matches_plain(args[:3], rays, mask, label)
+    assert not bool(hit.found[woop_trace.dead_lanes(rays[2], rays[3])].any()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_r", [1, 31, 32, 33, 255, 257, 4096])
+def test_woop_kernels_on_batches_of_every_width_match_plain(cuda, num_r):
+  # a tile packs its live rays: every third ray is dead, and K9a takes the
+  # live ones two a warp, so an odd count leaves a warp one ray
+  rng = np.random.default_rng(1000 + num_r)
+  args = _materials_case(rng, max(num_r, 64), cuda)
+  rays = [x[:num_r].contiguous() for x in args[3:]]
+  rays[3][::3] = 0.0
+  _woop_matches_plain(args[:3], rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_t", [1, 1024, 1025])
+def test_woop_kernels_where_the_staging_changes_match_plain(cuda, num_t):
+  # 1024 rows are staged at once, with no barrier in the loops; 1025 take a
+  # second chunk of one row; one triangle is padded to 32 rows
+  rng = np.random.default_rng(1100 + num_t)
+  args = _case(rng, num_t, 20001, cuda)
+  for mask in (None, torch.from_numpy(rng.uniform(size=num_t) > 0.3).to(cuda)):
+    _woop_matches_plain(args[:3], args[3:], mask)
+
+
+@pytest.mark.cuda
+def test_woop_kernels_replay_in_a_cuda_graph(cuda):
+  rng = np.random.default_rng(15)
+  args = _materials_case(rng, 70001, cuda)
+  args[6][::4] = 0.0  # dead lanes, skipped
+  want = woop_trace.intersect(*args)
+  want_occ = woop_trace.occluded(*args)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      woop_trace.intersect(*args)
+      woop_trace.occluded(*args)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  before = dict(woop_trace.launches)
+  with torch.cuda.graph(graph):
+    hit = woop_trace.intersect(*args)
+    occ = woop_trace.occluded(*args)
+  assert woop_trace.launches == {k: n + 1 for k, n in before.items()}
+  for _ in range(2):
+    for x in (hit.t, hit.u, hit.v):
+      x.fill_(-7.0)
+    hit.tri.fill_(-7)
+    occ.fill_(True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, expected in zip(hit, want):
+      assert torch.equal(got, expected)
+    assert torch.equal(occ, want_occ)
+  assert torch.equal(want_occ, woop_trace.occluded_plain(*args))
+
+
 @pytest.mark.cuda
 def test_woop_kernels_take_strided_rays_and_reject_what_they_do_not_take(cuda):
   rng = np.random.default_rng(11)

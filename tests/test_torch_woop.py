@@ -144,12 +144,33 @@ def _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, mask):
   return tie, (loose != strict).any(axis=1)
 
 
-@pytest.mark.parametrize("num_t,masked,seed", [(600, False, 32), (600, True, 33),
-                                               (1100, False, 34), (1100, True, 35)])
-def test_woop_plain_matches_tpu_kernel_body(num_t, masked, seed):
+def _dead_lanes_interleaved(t_min, t_max):
+  """The rays with every other lane made dead as the kernels' skip test
+  (`woop_trace.dead_lanes`) finds it, in turn: t_max = 0, t_max = -0, a NaN
+  t_min, t_min one ulp above t_max."""
+  t_min, t_max = t_min.copy(), t_max.copy()
+  t_max[0::8] = 0.0
+  t_max[2::8] = -0.0
+  t_min[4::8] = np.nan
+  t_min[6::8] = np.nextafter(t_max[6::8], np.float32(np.inf))
+  return t_min, t_max
+
+
+# the ids of the cases without dead lanes are those they had before the
+# dead-lane cases came
+@pytest.mark.parametrize("num_t,masked,seed,dead", [
+    pytest.param(600, False, 32, False, id="600-False-32"),
+    pytest.param(600, True, 33, False, id="600-True-33"),
+    pytest.param(1100, False, 34, False, id="1100-False-34"),
+    pytest.param(1100, True, 35, False, id="1100-True-35"),
+    pytest.param(600, False, 38, True, id="600-False-38-dead-lanes"),
+    pytest.param(1100, True, 39, True, id="1100-True-39-dead-lanes")])
+def test_woop_plain_matches_tpu_kernel_body(num_t, masked, seed, dead):
   rng = np.random.default_rng(seed)
   v0, e1, e2 = _tris(rng, num_t)
   o, d, t_min, t_max = _rays(rng, v0, e2, 512)
+  if dead:
+    t_min, t_max = _dead_lanes_interleaved(t_min, t_max)
   mask = rng.uniform(size=num_t) > 0.3 if masked else None
   (rt, rtri, ru, rv), rocc = _interpret_woop(v0, e1, e2, o, d, t_min, t_max, mask)
   tmask = None if mask is None else torch.from_numpy(mask)
@@ -173,6 +194,12 @@ def test_woop_plain_matches_tpu_kernel_body(num_t, masked, seed):
   np.testing.assert_array_equal(np.isinf(rt), rtri < 0)
   assert np.all(gtri[t_max <= 0.0] == -1) and not occ[t_max <= 0.0].any()
   np.testing.assert_array_equal(occ, gtri >= 0)
+  # a lane the kernels skip misses in the TPU kernel body and the plain
+  # versions alike
+  skipped = woop_trace.dead_lanes(torch.from_numpy(t_min), torch.from_numpy(t_max)).numpy()
+  assert skipped[::2].all() == dead and (skipped.mean() >= 0.5) == dead
+  assert np.all(rtri[skipped] == -1) and not rocc[skipped].any()
+  assert np.all(gtri[skipped] == -1) and not occ[skipped].any()
 
 
 def test_woop_agrees_with_the_pair_tile_kernel_away_from_edges():
