@@ -40,8 +40,8 @@ Phases, one line each with its elapsed seconds:
      and triangle tests the plain version's walk makes for the rays whose
      interval is not empty; a per-ray work line gives the plain walk's rows
      and triangle tests a ray (mean, p99, max) and the share of lane slots
-     that carry a step when one thread walks one ray; K5/K6 also print their
-     blocks per SM and persistent grid;
+     that carry a step when one thread walks one ray; each also prints its
+     blocks per SM and grid;
   11. K9a Woop closest hit and 12. K9b Woop any hit: the same checks on
      2^18 rays against the materials (996), caustics (1,060) and bigscene
      (dense, 15,396) scenes and the 4096- and 129-triangle soups, and on
@@ -75,13 +75,19 @@ Phases, one line each with its elapsed seconds:
      way; then its bounce-2 rays captured as the materials path's are, with
      K5 and K6 held against the plain walk and timed on them, beside their
      live share, bound and per-ray work;
-  16. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  16. main path, bigscene without fat rows: the same render of the same
+     scene with its tree's fat rows removed, so the trace dispatch takes
+     K7/K8 (and never K5/K6), gated as phase 15 and held against phase 15's
+     image (exact ties may go to other triangles), profiled, and its
+     bounce-2 rays captured, with K7 and K8 held against the plain walk and
+     timed on them; the `kernels` line's K7/K8 launches are this render's;
+  17. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
      against the same render on the CPU; the 32x32 bigscene render (8 spp)
      on the card against the CPU, through K5/K6, and again with the tree's
      fat rows removed, through K7/K8;
-  17. micro: the micro-benchmark entry
+  18. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
      against bigscene; `trace_brute`: K3/K4 against K9a/K9b on 2^18 random
@@ -214,7 +220,9 @@ def kernel_ms(fn, kernel_name: str, reps: int) -> float:
   launch, summed (K6 launches two a call, its pack and walk kernels). A mean
   per launch, not a total over the calls: the profiler may drop some of a
   trace's kernel records (and a trace with none is taken again, up to three
-  times)."""
+  times; after three such traces the time is taken by CUDA events around
+  the calls, launches and the gaps between them included, and a line says
+  so)."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -227,7 +235,10 @@ def kernel_ms(fn, kernel_name: str, reps: int) -> float:
                   if kernel_name in ev.key and ev.count > 0 and ev.device_time_total > 0.0]
     if per_launch:
       return sum(per_launch) / 1e3
-  raise AssertionError(f"the profiler recorded no {kernel_name} launch in three traces")
+  ms = event_ms(fn, reps)
+  say("timing", f"the profiler recorded no {kernel_name} launch in three traces: "
+      f"{ms:.4f} ms a call by CUDA events")
+  return ms
 
 
 def bound_ms(ops: int, nbytes: int):
@@ -259,13 +270,14 @@ def soup_tree(rng, n: int, dev):
   return tris, scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)
 
 
-def comb_tree(rng, depth: int, dev):
-  """(triangle arrays, BVH) of a comb of `depth` levels: spine node k has
-  spine node k + 1 as its left child and, as its right child, an inner node
-  over two one-triangle leaves; the last spine node has two leaves. Every
-  box is the scene's, so a ray from inside walks every row, and its fat walk
-  pushes depth - 1 entries: a stack deeper than any scene's so far (depth 61
-  pushes 60 of the kernels' 64)."""
+def comb_arrays(rng, depth: int) -> dict:
+  """The numpy arrays (triangles "tri_v0", ..., and the tree "bvh.node_min",
+  ..., "bvh.fat_rows", in `bvh_build.build_bvh`'s layout) of a comb of
+  `depth` levels: spine node k has spine node k + 1 as its left child and,
+  as its right child, an inner node over two one-triangle leaves; the last
+  spine node has two leaves. Every box is the scene's, so a ray from inside
+  walks every row, and its fat walk pushes depth - 1 entries: a stack
+  deeper than any scene's so far (depth 61 pushes 60 of the kernels' 64)."""
   num_t = 2 * depth
   v0 = rng.uniform(-1.0, 1.0, (num_t, 3)).astype(np.float32)
   e1 = rng.uniform(-0.5, 0.5, (num_t, 3)).astype(np.float32)
@@ -299,9 +311,14 @@ def comb_tree(rng, depth: int, dev):
           "prim_index": np.arange(num_t, dtype=np.int32)}
   tree["fat_rows"] = bvh_build.build_fat_rows(tree["node_min"], tree["node_max"],
                                              tree["node_left"], tree["node_count"])
-  arrays = {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
-            **{f"bvh.{k}": v for k, v in tree.items()}}
-  tris = [torch.from_numpy(a).to(dev) for a in (v0, e1, e2)]
+  return {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+          **{f"bvh.{k}": v for k, v in tree.items()}}
+
+
+def comb_tree(rng, depth: int, dev):
+  """(triangle arrays, BVH) of the comb of `comb_arrays`."""
+  arrays = comb_arrays(rng, depth)
+  tris = [torch.from_numpy(arrays[k]).to(dev) for k in ("tri_v0", "tri_e1", "tri_e2")]
   return tris, scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)
 
 
@@ -486,7 +503,7 @@ def work(name, geometry, rays):
     zeros = lambda: torch.zeros(num_r, dtype=torch.int64, device=rays[0].device)
     stats = {"boxes": 0, "tris": 0, "ray_rows": zeros(), "ray_tris": zeros()}
     getattr(bvh_trace, f"{entry}_plain")(bvh, *rays, stats=stats)
-    # a ray with an empty interval needs no test (K5/K6 skip it); the rest
+    # a ray with an empty interval needs no test (K5-K8 skip it); the rest
     # need the walk's box and triangle tests
     live = live_lanes(name, rays)
     rows = int(stats["ray_rows"][live].sum().item())
@@ -541,7 +558,7 @@ def live_lanes(name, rays):
 def lane_variants(rays, n: int = FEW_RAYS):
   """The first n of `rays` under each lane pattern the pair-tile and BVH
   kernels must take: dead lanes (t_max = 0 or -0, which K3/K4 skip; a NaN
-  t_min or a t_min one ulp above t_max, which K5/K6 skip) among live ones,
+  t_min or a t_min one ulp above t_max, which K5-K8 skip) among live ones,
   intervals that are not empty, strided rays."""
   o, d, t_min, t_max = (x[:n] for x in rays)
   every_other = t_max.clone()
@@ -573,7 +590,7 @@ def compare(name, geometry, rays, mask):
 
 def occupancy_note(name, num_t, num_r):
   """Blocks per SM and waves of a K1-K4 or K9a/K9b launch for this shape, or
-  the persistent grid of K5/K6."""
+  the grid of K5-K8 (persistent for the closest hits)."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
   if KERNELS[name][0] is brute_trace:
     blocks, tile = brute_trace.launch_shape(num_t, num_r, name not in CLOSEST)
@@ -581,10 +598,15 @@ def occupancy_note(name, num_t, num_r):
     return (f"{blocks} blocks of 256 threads per SM, {tile} rays a block, {grid} blocks in "
             f"{grid / (blocks * sms):.2f} waves of {blocks * sms}")
   if KERNELS[name][0] is bvh_trace:
-    blocks, threads = bvh_trace.fat_occupancy(name not in CLOSEST)
-    grid = min(blocks * sms, -(-num_r // threads))
-    return (f"{blocks} blocks of {threads} threads per SM ({blocks * threads // 32} resident "
-            f"warps), {grid} persistent blocks for {num_r} rays")
+    any_hit = name not in CLOSEST
+    blocks, threads = bvh_trace.occupancy(KERNELS[name][1].endswith("fat"), any_hit)
+    # at most the resident grid, at least one ray a warp
+    grid = min(blocks * sms, -(-num_r // (threads // 32)))
+    head = f"{blocks} blocks of {threads} threads per SM ({blocks * threads // 32} resident warps)"
+    if not any_hit:
+      return f"{head}, {grid} persistent blocks for {num_r} rays"
+    return (f"{head}, {max(grid, -(-num_r // threads))} blocks for {num_r} rays, one live ray "
+            f"a lane, the live rays spread over the warps of {grid} blocks")
   mod = KERNELS[name][0]
   blocks = mod.occupancy(num_t, name not in CLOSEST)
   grid = -(-num_r // mod.TILE_RAYS)
@@ -601,7 +623,6 @@ def kernel_phase(name, dev, rng, cases, timed):
   (tris, bvh), origin box or None, rays)."""
   kname = KERNELS[name][2]
   mod = KERNELS[name][0]
-  persistent = name in ("intersect_bvh_fat", "occluded_bvh_fat")
   err = 0.0
   for label, geometry, inside, num_r in cases:
     tris = geometry[0]
@@ -639,8 +660,7 @@ def kernel_phase(name, dev, rng, cases, timed):
         f"from {counted}, {nbytes} bytes)")
     if per_ray is not None:
       say(name, f"per-ray work ({label}, plain walk): {per_ray}")
-    if mod is not bvh_trace or persistent:
-      say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
+    say(name, occupancy_note(name, geometry[0][0].shape[0], num_r))
     rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
   return {"max_abs_err": err, **rows[0]}
 
@@ -734,21 +754,29 @@ def main_path_materials(scene, config, dev):
 
 
 def main_path_bigscene(scene, config, dev):
+  """The bigscene render, through K5/K6, or through K7/K8 (and never K5/K6)
+  when the tree has no fat rows. Returns (launch counts, image)."""
   check(not config.spectral and config.material_classes == (0,)
-        and scene.tri_v0.shape[0] == bigscene.NUM_TRIANGLES
-        and scene.bvh.fat_table is not None, f"bigscene config {config}")
+        and scene.tri_v0.shape[0] == bigscene.NUM_TRIANGLES, f"bigscene config {config}")
+  fat = scene.bvh.fat_table is not None
+  label = "bigscene" if fat else "bigscene without fat rows"
   img, counts, seconds, rays = render_main(
-      f"bigscene 512x512 mpl 8 pool 2^18 {BIGSCENE_ITERATIONS} spp", scene, config,
+      f"{label} 512x512 mpl 8 pool 2^18 {BIGSCENE_ITERATIONS} spp", scene, config,
       BIGSCENE_ITERATIONS, dev)
-  check(bool((img >= 0.0).all()), "bigscene: image has negative values")
+  check(bool((img >= 0.0).all()), f"{label}: image has negative values")
   mean = float(img.mean())
   lo, hi = BIGSCENE_MEAN
-  check(lo <= mean <= hi, f"bigscene: image mean {mean} outside [{lo}, {hi}]")
-  left, right = check_thirds(img, "bigscene")
-  for key in ("intersect_bvh_fat", "occluded_bvh_fat"):
-    check(counts[key] > 0, f"the bigscene main path never launched the {key} kernel")
-  say("main", f"bigscene image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
-  return counts
+  check(lo <= mean <= hi, f"{label}: image mean {mean} outside [{lo}, {hi}]")
+  left, right = check_thirds(img, label)
+  used, unused = (("intersect_bvh_fat", "occluded_bvh_fat"), ("intersect_bvh", "occluded_bvh"))
+  if not fat:
+    used, unused = unused, used
+  for key in used:
+    check(counts[key] > 0, f"the {label} main path never launched the {key} kernel")
+  for key in unused:
+    check(counts[key] == 0, f"the {label} main path launched the {key} kernel")
+  say("main", f"{label} image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
+  return counts, img
 
 
 def capture_bounce(scene, config, dev, bounce: int):
@@ -783,7 +811,7 @@ def capture_bounce(scene, config, dev, bounce: int):
 def captured_phase(label, names, scene, config, dev):
   """The closest-hit and the any-hit kernel `names` on the rays that a main
   path traces at bounce 2: held against their plain versions, timed, with
-  their live share and bound (and, for K5/K6, the plain walk's work a
+  their live share and bound (and, for K5-K8, the plain walk's work a
   ray)."""
   closest, shadow = capture_bounce(scene, config, dev, CAPTURE_BOUNCE)
   geometry = (list(scene[:3]), scene.bvh if KERNELS[names[0]][0] is bvh_trace else None)
@@ -802,6 +830,8 @@ def captured_phase(label, names, scene, config, dev):
         f"operations from {counted}, {nbytes} bytes)")
     if per_ray is not None:
       say("captured", f"{name} per-ray work (plain walk): {per_ray}")
+      say("captured", f"{name}: " + occupancy_note(name, geometry[0][0].shape[0],
+                                                   rays[0].shape[0]))
 
 
 def profile_step_mix(label, scene, config, dev):
@@ -846,23 +876,28 @@ def render_small(build, dev_name: str, iterations: int):
   return img.cpu().numpy()
 
 
+def same_image(phase, label, img, ref):
+  """`img` within E2E_OUTLIERS outlier pixels (off by more than 1e-4 +
+  1e-3 |ref|) and E2E_MEAN_RTOL of the mean of `ref`."""
+  out = np.abs(img - ref) > 1e-4 + 1e-3 * np.abs(ref)
+  frac = float(out.any(axis=-1).mean())
+  mean_rel = float(abs(img.mean(dtype=np.float64) - ref.mean(dtype=np.float64))
+                   / abs(ref.mean(dtype=np.float64)))
+  say(phase, f"{label}: outlier pixels {frac:.4f}, mean rel diff {mean_rel:.2e}, "
+      f"max abs diff {float(np.abs(img - ref).max()):.3e}, reference mean {float(ref.mean()):.5f}")
+  check(frac <= E2E_OUTLIERS, f"{label}: {frac} of pixels differ")
+  check(mean_rel <= E2E_MEAN_RTOL, f"{label}: image means differ by {mean_rel}")
+
+
 def card_vs_cpu(label, build, iterations):
   card = render_small(build, "cuda", iterations)
   cpu = render_small(build, "cpu", iterations)
-  out = np.abs(card - cpu) > 1e-4 + 1e-3 * np.abs(cpu)
-  frac = float(out.any(axis=-1).mean())
-  mean_rel = float(abs(card.mean(dtype=np.float64) - cpu.mean(dtype=np.float64))
-                   / abs(cpu.mean(dtype=np.float64)))
-  say("e2e", f"{label}, card vs CPU: outlier pixels {frac:.4f}, mean rel diff {mean_rel:.2e}, "
-      f"max abs diff {float(np.abs(card - cpu).max()):.3e}, CPU mean {float(cpu.mean()):.5f}")
-  check(frac <= E2E_OUTLIERS, f"{label} card vs CPU: {frac} of pixels differ")
-  check(mean_rel <= E2E_MEAN_RTOL, f"{label} card vs CPU: image means differ by {mean_rel}")
+  same_image("e2e", f"{label}, card vs CPU", card, cpu)
   return card
 
 
 def end_to_end():
-  """The 32x32 renders on the card against the same renders on the CPU.
-  Returns the launch counts of the bigscene render through K7/K8."""
+  """The 32x32 renders on the card against the same renders on the CPU."""
   card = card_vs_cpu("cornell 32x32 golden config", lambda d: cornell_scene((32, 32), 6, d), 4)
   mean = card.mean(axis=(0, 1))
   total = float(card.sum())
@@ -887,7 +922,6 @@ def end_to_end():
     check(counts[key] > 0, f"the bigscene render without fat rows never launched the {key} kernel")
   check(counts["intersect_bvh_fat"] == 0 and counts["occluded_bvh_fat"] == 0,
         "the bigscene render without fat rows launched a fat-row kernel")
-  return counts
 
 
 def micro_phase(dev):
@@ -1060,10 +1094,18 @@ def main() -> int:
   counts_mat = main_path_materials(*materials_512, dev)
   profile_step_mix("materials 512x512", *materials_512, dev)
   captured_phase("materials", ("intersect_brute2", "occluded_brute2"), *materials_512, dev)
-  counts_big = main_path_bigscene(*bigscene_512, dev)
+  counts_big, img_big = main_path_bigscene(*bigscene_512, dev)
   profile_step_mix("bigscene 512x512", *bigscene_512, dev)
   captured_phase("bigscene", ("intersect_bvh_fat", "occluded_bvh_fat"), *bigscene_512, dev)
-  counts_node = end_to_end()
+  # the same scene and seeds without the fat rows: K7/K8 on a full-width path
+  nofat_512 = (bigscene_512[0]._replace(bvh=scene_types.without_fat_rows(bigscene_512[0].bvh)),
+               bigscene_512[1])
+  counts_node, img_node = main_path_bigscene(*nofat_512, dev)
+  # the two walks may keep other triangles of an exact tie
+  same_image("main", "bigscene without fat rows vs with", img_node, img_big)
+  profile_step_mix("bigscene 512x512 without fat rows", *nofat_512, dev)
+  captured_phase("bigscene without fat rows", ("intersect_bvh", "occluded_bvh"), *nofat_512, dev)
+  end_to_end()
   counts_micro = micro_phase(dev)
 
   launches = {"intersect": counts["intersect"], "occluded": counts["occluded"],

@@ -11,10 +11,11 @@
 // kernels walk ONE depth-first node stream per tile of 1024 rays, because
 // the TPU vector unit has no per-lane control flow, and read chunk-packed
 // (16, 128) tables through one-hot reduces, with ids stored as float32.
-// Here each ray walks the same tree on its own stack in the same left-first
-// pre-order, reading fat rows (64 B, four 16-byte loads), node rows (32 B,
-// two loads) and the triangle rows reordered by leaf order (48 B, three
-// loads) through the read-only path. Ids and counts are int32. The bigscene
+// Here each ray walks the same tree on its own in the same left-first
+// pre-order (the fat rows on a stack, the nodes by skips), reading fat rows
+// (64 B, four 16-byte loads), node rows (32 B, two loads) and the triangle
+// rows reordered by leaf order (48 B, three loads) through the read-only
+// path. Ids and counts are int32. The bigscene
 // tables (305 KB of fat rows, 305 KB of nodes, 739 KB of triangles) sit in
 // the 50 MB L2.
 //
@@ -25,11 +26,15 @@
 // inner child, or pops. Row fields: boxes as float32 bits in words 0-11,
 // then L_first, R_first (a fat-row index for an inner child, a triangle
 // row for a leaf), counts = L_count * 32 + R_count, skip (unused here). A
-// plain node slab-tests its box; a hit leaf tests its triangles; a hit
-// inner node pushes its right child (node_left) and goes to its left child
-// (the next node). A ray thus tests its triangles in the order the TPU
-// kernels' shared stream tests them for it (a subsequence), and a strict
-// `t < best_t` keeps the first of equal hits: the same triangle wins a tie.
+// plain node slab-tests its box; a hit leaf tests its triangles; the walk
+// then goes to the next node (node + 1) after a hit inner node or a leaf,
+// and to the node's skip after a missed inner node, as the TPU kernels'
+// stream does; it ends at N, the node count. Node row fields: the box as
+// float32 bits in words 0-5, word 6 the first triangle row of a leaf or the
+// skip of an inner node, word 7 the leaf's count (0: inner). A ray thus
+// tests its triangles in the order the TPU kernels' shared stream tests
+// them for it (a subsequence), and a strict `t < best_t` keeps the first of
+// equal hits: the same triangle wins a tie.
 // The any hits return at the first valid triangle, where the TPU kernels
 // exit once every ray of the tile is occluded; the output is the same.
 //
@@ -44,28 +49,40 @@
 // K5's lane slots (0.32 of K6's) carry a step. Dead lanes (an empty
 // interval) held slots.
 //
-// Design of K5/K6 (timed by `bvh_steps.py` against the one-ray-a-thread
+// Design of K5/K6 (timed by `kernel_steps.py bvh` against the one-ray-a-thread
 // design it replaced; PERF.md §6 has the numbers):
 //  - Packing. A ray with !(t_min <= t_max), NaN included, has no valid
 //    triangle (a hit wants t_min <= t <= t_max): it gets the miss record at
 //    once and no lane walks it.
 //  - Lanes from the batch. A warp keeps as many lanes busy as spread the
-//    live rays over every warp of the grid, at most 32: a small batch (the
-//    main path's narrow phases, a batch of long walks) runs a few rays a
-//    warp, whose walks diverge less, where 32 rays a warp wait on each
-//    other; a large batch runs full warps.
+//    live rays over every warp of the resident grid, at most 32: a small
+//    batch (the main path's narrow phases, a batch of long walks) runs a
+//    few rays a warp, whose walks diverge less, where 32 rays a warp wait
+//    on each other; a large batch runs full warps.
 //  - K5 (closest hit): persistent warps (as many blocks as stay resident, the
 //    occupancy calculator) take rays from a queue, `want` at a time with one
 //    atomicAdd, ballot the live ones to their idle lanes, and refill lanes
 //    once 8 are idle (Aila and Laine, "Understanding the Efficiency of Ray
 //    Traversal on GPUs", HPG 2009): the long closest-hit walks finish on
 //    balanced warps, and a refill's atomic is shared by 8 rays. The lanes to
-//    keep come from the live share each warp has seen.
+//    keep come from the live share each warp has seen. A lane steps its
+//    ray up to 8 times between two votes of its warp (the votes, the
+//    refill test and the parallel-axis vote cost a node step about a
+//    quarter of its instructions): on an H100 2-10% off K5 and 4-17% off K7
+//    against a vote every step, on every ray set, for a few steps of an
+//    idle lane before its refill; 0-5% more than 4 steps a vote, and 16
+//    gain nothing more.
 //  - K6 (any hit): a first kernel writes the dead rays' misses and packs the
-//    live rays' indices into a list (one atomicAdd a block); the walk's
-//    active lanes take fixed strides of it, one ray after another. The short
-//    any-hit walks gain less from a queue than its atomics and votes cost,
-//    and a batch of dead rays (the main path's shadow rays) costs one pass.
+//    live rays' indices into a list (one atomicAdd a block); each active
+//    lane of the walk takes one ray of it, and the walk's grid has a block
+//    for every 128 rays of the batch (at least the resident grid), which
+//    the hardware hands to the SMs as blocks finish. The short any-hit
+//    walks gain less from a queue than its atomics and votes cost, and a
+//    batch of dead rays (the main path's shadow rays) costs one pass. The
+//    resident grid's lanes taking fixed strides of the list, one ray after
+//    another, left SMs idle at the end of a large batch (half the lanes of
+//    a 2^18 batch walk two rays, the other half one): 10-18% slower on an
+//    H100 at 2^18-2^20 test rays, and 3% on the main path's calls.
 //  - A warp none of whose rays runs parallel to an axis (|d| < 1e-12, rare
 //    off the test rays) steps without the parallel-axis override; the two
 //    leaves of a row are tested in one loop of n_l + n_r triangles.
@@ -81,8 +98,42 @@
 // The design changes which lane runs a ray and when, and which instructions
 // compute each value, never what is computed.
 //
-// K7/K8 keep the first design: one thread per ray, blocks of 128, the stack
-// in local memory.
+// K7/K8 (timed by `kernel_steps.py bvh` against the first port's
+// one-ray-a-thread stack walk and against a stack walk on this scheduler; PERF.md §6): the
+// same scheduler as K5/K6 (one template, `walk`: dead rays packed away, K7
+// on persistent warps refilled from the queue, K8 on the pack kernel's
+// list, lanes from the batch), over the nodes by a stackless skip walk. A
+// ray's walk is then (node, best) and nothing in local memory: on an H100
+// 1-3% faster than the same scheduler's stack walk for K7 (no local-memory
+// push and pop) and 1-5% for K8, with 58 registers against 60.
+//
+// Why the skip walk visits exactly the nodes of the stack walk, in order.
+// The tree is in pre-order: subtree(i) is the node range [i, end(i)); an
+// inner node's left child is i + 1 and its right child r(i) = end(i + 1);
+// a right child's subtree ends where its parent's does. skip(i) = end(i):
+// `bvh_build.compute_skip` gives the root N, a left child its parent's
+// right child, a right child its parent's skip. A leaf's subtree is itself,
+// so its skip is i + 1. The stack walk, at a hit inner node i, pushes r(i)
+// and goes to i + 1; at a leaf or a missed node it pops, or ends on an
+// empty stack. Claim: standing at node i, its stack holds r(a) for each
+// ancestor a of i whose left subtree holds i, the deepest on top, and
+// nothing else. It holds at the root (empty). A push at i keeps it for
+// i + 1: i joins as the deepest such ancestor, and the others' left
+// subtrees hold i + 1 as they hold i. A pop goes to r(a) for the deepest
+// such a and removes it: the ancestors of r(a) whose left subtree holds it
+// are those above a whose left subtree holds a, which are the ones left.
+// So a pop from i goes to r(a) = end(a + 1) for the deepest ancestor a
+// whose left subtree holds i. The path from a + 1 down to i runs through
+// right children only (a deeper ancestor with i on its left would be
+// deeper than a), so end(i) = end(a + 1) = r(a) = skip(i); and with no
+// such ancestor the path from the root runs through right children only,
+// end(i) = N, and the stack is empty. The stack walk's moves are the skip
+// walk's moves, step for step: the same nodes in the same order, with the
+// same box test at each (its cap depends on the triangles tested before,
+// which are the same) and the same triangles in the same order. Neither a
+// depth nor a stack bounds the skip walk. `tests/test_torch_bvh_lanes.py`
+// checks this on seeded trees and the comb, against a stack walk kept in
+// the test.
 //
 // Numerics: the expressions of `pallas_trace._tri_hit` and the slab of
 // `_fat_step` / `_kernel_bvh`, in the same order, built with -fmad=false and
@@ -97,8 +148,9 @@ namespace {
 
 constexpr int kThreads = 128;     // threads a block of K5-K8
 constexpr int kWarps = kThreads / 32;
-constexpr int kPackThreads = 256;  // K6's pack kernel
-constexpr int kRefillMin = 8;     // K5 refills its lanes once this many are idle
+constexpr int kPackThreads = 256;  // K6's and K8's pack kernel
+constexpr int kRefillMin = 8;     // K5/K7 refill their lanes once this many are idle
+constexpr int kStepsPerVote = 8;  // ... and step a ray up to this often between votes
 constexpr int kStackDepth = 64;   // ops/bvh_build.py STACK_DEPTH
 constexpr float kMtEps = 1e-9f;
 constexpr float kBig = 3e38f;
@@ -253,9 +305,20 @@ __device__ __forceinline__ void write_out(const Out& out, int i, const Best& b, 
   }
 }
 
-// ------------------------------------------------------------------ K5, K6
+// ------------------------------------------------------------------ K5-K8
 
-// A ray's walk in K5/K6: the row to test next and the stack pointer.
+// The tree a walk reads: the fat rows (4 int4 a row) or the plain nodes (2
+// int4 a node), their number (read by the node walk, which ends past the
+// last node), and the triangle rows and mask.
+struct Tree {
+  const int4* rows;
+  int num_rows;
+  const float4* tris;
+  const unsigned char* mask;
+};
+
+// A ray's walk: the row (fat row or node) to test next and, in K5/K6, the
+// stack pointer.
 struct Walk {
   int row, sp;
 };
@@ -266,11 +329,9 @@ struct Walk {
 // child), or to a hit right inner child, or a pop. Returns true when the
 // ray has finished (an any hit found, or nothing left to pop).
 template <bool kAnyHit, bool kPar>
-__device__ __forceinline__ bool fat_step(const int4* __restrict__ fat,
-                                         const float4* __restrict__ tris,
-                                         const unsigned char* __restrict__ mask, const Ray& r,
-                                         Best& b, bool& occluded, Walk& w, int* stack) {
-  const int4* p = fat + 4 * (long long)w.row;
+__device__ __forceinline__ bool fat_step(const Tree& tree, const Ray& r, Best& b,
+                                         bool& occluded, Walk& w, int* stack) {
+  const int4* p = tree.rows + 4 * (long long)w.row;
   const int4 q0 = __ldg(p);
   const int4 q1 = __ldg(p + 1);
   const int4 q2 = __ldg(p + 2);
@@ -287,7 +348,7 @@ __device__ __forceinline__ bool fat_step(const int4* __restrict__ fat,
   const int n = n_l + (hit_r ? count_r : 0);
   for (int k = 0; k < n; ++k) {
     const int j = k < n_l ? q3.x + k : q3.y + (k - n_l);
-    if (tri_test<kAnyHit>(r, tris, mask, j, b) && kAnyHit) {
+    if (tri_test<kAnyHit>(r, tree.tris, tree.mask, j, b) && kAnyHit) {
       occluded = true;
       return true;
     }
@@ -308,6 +369,37 @@ __device__ __forceinline__ bool fat_step(const int4* __restrict__ fat,
   return false;
 }
 
+// One plain node of a ray's skip walk (K7/K8): the box test against cap, a
+// hit leaf's triangles (word 6 is its first triangle row, word 7 its
+// count), then the next node: node + 1 after a hit inner node and after any
+// leaf, the skip (word 6 of an inner node) after a missed inner node. The
+// stack goes unused. Returns true when the ray has finished (an any hit
+// found, or the walk has passed the last node).
+template <bool kAnyHit, bool kPar>
+__device__ __forceinline__ bool node_step(const Tree& tree, const Ray& r, Best& b,
+                                          bool& occluded, Walk& w, int* stack) {
+  const int4* p = tree.rows + 2 * (long long)w.row;
+  const int4 q0 = __ldg(p);
+  const int4 q1 = __ldg(p + 1);
+  const float cap = kAnyHit ? r.tmax : fminf(r.tmax, b.t);
+  const bool hit = box_hit<kPar>(r, bits(q0.x), bits(q0.y), bits(q0.z),
+                                 bits(q0.w), bits(q1.x), bits(q1.y), cap);
+  const int count = q1.w;
+  if (hit && count > 0 && test_leaf<kAnyHit>(r, tree.tris, tree.mask, q1.z, count, b)) {
+    occluded = true;
+    return true;
+  }
+  w.row = hit || count > 0 ? w.row + 1 : q1.z;
+  return w.row >= tree.num_rows;
+}
+
+template <bool kAnyHit, bool kFat, bool kPar>
+__device__ __forceinline__ bool step(const Tree& tree, const Ray& r, Best& b, bool& occluded,
+                                     Walk& w, int* stack) {
+  return kFat ? fat_step<kAnyHit, kPar>(tree, r, b, occluded, w, stack)
+              : node_step<kAnyHit, kPar>(tree, r, b, occluded, w, stack);
+}
+
 // Lanes a warp keeps busy when `live` rays are shared by `warps` warps: as
 // many as spread the live rays over every warp, at most 32. A small batch
 // then runs a few rays a warp, whose long walks diverge less.
@@ -316,12 +408,11 @@ __device__ __forceinline__ int lanes_for(long long live, int warps) {
   return per < 1 ? 1 : (per > 32 ? 32 : (int)per);
 }
 
-// K6's first kernel: the miss (occ = 0) for each ray whose interval is
-// empty (!(t_min <= t_max), NaN included: no t lies in it, so no triangle
-// is valid), and the live rays' indices appended to list = scratch + 2, one
-// atomicAdd on the count scratch[0] a block.
-__global__ void __launch_bounds__(kPackThreads)
-bvh_fat_kernel_pack(const Rays rs, const Out out, int* __restrict__ scratch) {
+// The first kernel of K6 and K8: the miss (occ = 0) for each ray whose
+// interval is empty (!(t_min <= t_max), NaN included: no t lies in it, so
+// no triangle is valid), and the live rays' indices appended to list =
+// scratch + 2, one atomicAdd on the count scratch[0] a block.
+__device__ __forceinline__ void pack(const Rays& rs, const Out& out, int* __restrict__ scratch) {
   __shared__ int warp_at[kPackThreads / 32];
   __shared__ int block_at;
   const int i = blockIdx.x * kPackThreads + threadIdx.x;
@@ -347,42 +438,42 @@ bvh_fat_kernel_pack(const Rays rs, const Out out, int* __restrict__ scratch) {
   if (live) scratch[2 + block_at + warp_at[warp] + __popc(m & ((1u << lane) - 1u))] = i;
 }
 
-// K5/K6's walk. K6 (kAnyHit): the a-th active lane (`target` a warp) walks
-// rays a, a + A, a + 2A, ... of the list that the pack kernel wrote, A the
-// active lanes of the grid. K5: persistent warps take `want` rays at a time
-// from the queue scratch[1] (all rays: each dead one gets its miss there),
-// hand the live ones to their idle lanes, and refill once kRefillMin lanes
-// are idle.
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-bvh_fat_kernel(const int4* __restrict__ fat, const float4* __restrict__ tris,
-               const unsigned char* __restrict__ mask, const Rays rs, const Out out,
-               int* __restrict__ scratch) {
+// The walk of K5-K8, one scheduler for both row forms (kFat); the live rays
+// are spread over `warps` warps (the grid that stays resident, or fewer
+// for a small batch). The any hits (K6, K8): the a-th active lane (`target`
+// a warp) walks ray a of the list that the pack kernel wrote, and the grid
+// has a block for every 128 rays, which the hardware hands to the SMs as
+// blocks finish. The closest hits (K5, K7): persistent warps take `want`
+// rays at a time from the queue scratch[1] (all rays: each dead one gets
+// its miss there), hand the live ones to their idle lanes, and refill once
+// kRefillMin lanes are idle; a lane steps its ray up to kStepsPerVote times
+// between two votes of its warp.
+template <bool kAnyHit, bool kFat>
+__device__ __forceinline__ void walk(const Tree& tree, const Rays& rs, const Out& out,
+                                     int* __restrict__ scratch, int warps) {
   __shared__ int s_hand[kWarps][32];
+  // K5/K6's stack; the node walk (no stack) leaves it unused, and the
+  // compiler drops it
   int stack[kStackDepth];
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int warps = gridDim.x * kWarps;
   const int warp_id = blockIdx.x * kWarps + (threadIdx.x >> 5);
 
   if (kAnyHit) {
     const int n = *(volatile int*)scratch;
-    const int* list = scratch + 2;
     const int target = lanes_for(n, warps);
-    if (lane >= target) return;
-    const int stride = warps * target;
-    for (int j = warp_id * target + lane; j < n; j += stride) {
-      const int i = list[j];
-      const Ray r = load_ray(rs, i);
-      Best b{INFINITY, -1, 0.0f, 0.0f};
-      bool occluded = false;
-      Walk w{0, 0};
-      const bool par = r.parx || r.pary || r.parz;
-      while (!(par ? fat_step<kAnyHit, true>(fat, tris, mask, r, b, occluded, w, stack)
-                   : fat_step<kAnyHit, false>(fat, tris, mask, r, b, occluded, w, stack))) {
-      }
-      write_out<kAnyHit>(out, i, b, occluded);
+    const int j = warp_id * target + lane;
+    if (lane >= target || j >= n) return;
+    const int i = scratch[2 + j];
+    const Ray r = load_ray(rs, i);
+    Best b{INFINITY, -1, 0.0f, 0.0f};
+    bool occluded = false;
+    Walk w{0, 0};
+    const bool par = r.parx || r.pary || r.parz;
+    while (!(par ? step<kAnyHit, kFat, true>(tree, r, b, occluded, w, stack)
+                 : step<kAnyHit, kFat, false>(tree, r, b, occluded, w, stack))) {
     }
+    write_out<kAnyHit>(out, i, b, occluded);
     return;
   }
 
@@ -444,10 +535,9 @@ bvh_fat_kernel(const int4* __restrict__ fat, const float4* __restrict__ tris,
     }
     // the parallel-axis override only in a warp with such a ray
     const bool par = __any_sync(kFull, cur >= 0 && any_par);
-    if (cur >= 0) {
-      const bool done =
-          par ? fat_step<kAnyHit, true>(fat, tris, mask, r, b, occluded, w, stack)
-              : fat_step<kAnyHit, false>(fat, tris, mask, r, b, occluded, w, stack);
+    for (int k = 0; k < kStepsPerVote && cur >= 0; ++k) {
+      const bool done = par ? step<kAnyHit, kFat, true>(tree, r, b, occluded, w, stack)
+                            : step<kAnyHit, kFat, false>(tree, r, b, occluded, w, stack);
       if (done) {
         write_out<kAnyHit>(out, cur, b, occluded);
         cur = -1;
@@ -456,10 +546,45 @@ bvh_fat_kernel(const int4* __restrict__ fat, const float4* __restrict__ tris,
   }
 }
 
-// Blocks of K5 or K6 that the current device holds at once (per SM, and on
-// all SMs), from the occupancy calculator, cached per device.
+// K5 (false) and K6 (true): the walk over the fat rows.
 template <bool kAnyHit>
-cudaError_t fat_resident(int* per_sm, int* total) {
+__global__ void __launch_bounds__(kThreads)
+bvh_fat_kernel(const Tree tree, const Rays rs, const Out out, int* __restrict__ scratch,
+               int warps) {
+  walk<kAnyHit, true>(tree, rs, out, scratch, warps);
+}
+
+// K7 (false) and K8 (true): the skip walk over the plain nodes.
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads)
+bvh_node_kernel(const Tree tree, const Rays rs, const Out out, int* __restrict__ scratch,
+                int warps) {
+  walk<kAnyHit, false>(tree, rs, out, scratch, warps);
+}
+
+__global__ void __launch_bounds__(kPackThreads)
+bvh_fat_kernel_pack(const Rays rs, const Out out, int* __restrict__ scratch) {
+  pack(rs, out, scratch);
+}
+
+__global__ void __launch_bounds__(kPackThreads)
+bvh_node_kernel_pack(const Rays rs, const Out out, int* __restrict__ scratch) {
+  pack(rs, out, scratch);
+}
+
+using WalkKernel = void (*)(Tree, Rays, Out, int*, int);
+
+template <bool kAnyHit, bool kFat>
+WalkKernel walk_kernel() {
+  if (kFat) return bvh_fat_kernel<kAnyHit>;
+  return bvh_node_kernel<kAnyHit>;
+}
+
+// Blocks of one of K5-K8's walks that the current device holds at once
+// (per SM, and on all SMs), from the occupancy calculator, cached per
+// device.
+template <bool kAnyHit, bool kFat>
+cudaError_t resident(int* per_sm, int* total) {
   static int cache_sm[kMaxDevices], cache_total[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -472,7 +597,7 @@ cudaError_t fat_resident(int* per_sm, int* total) {
   int sms = 0, blocks = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh_fat_kernel<kAnyHit>,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, walk_kernel<kAnyHit, kFat>(),
                                                     kThreads, 0);
   if (e != cudaSuccess) return e;
   if (blocks < 1) return cudaErrorInvalidConfiguration;
@@ -485,76 +610,35 @@ cudaError_t fat_resident(int* per_sm, int* total) {
   return cudaSuccess;
 }
 
-template <bool kAnyHit>
-int launch_fat(const int* table, const float* tris, const unsigned char* mask, const Rays& rs,
-               const Out& out, int* scratch, void* stream) {
+template <bool kAnyHit, bool kFat>
+int launch(const Tree& tree, const Rays& rs, const Out& out, int* scratch, void* stream) {
   if (rs.n <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // blocks enough for every ray at once (at least one ray a warp), at most
   // the blocks that stay resident
   const int tiles = (rs.n + kWarps - 1) / kWarps;
-  int per_sm = 0, resident = 0;
-  cudaError_t e = fat_resident<kAnyHit>(&per_sm, &resident);
+  int per_sm = 0, all = 0;
+  cudaError_t e = resident<kAnyHit, kFat>(&per_sm, &all);
   if (e != cudaSuccess) return (int)e;
-  const int grid = resident < tiles ? resident : tiles;
+  const int grid = all < tiles ? all : tiles;
   // the live count and the queue start at 0
   e = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
-  if (kAnyHit) {
-    bvh_fat_kernel_pack<<<(rs.n + kPackThreads - 1) / kPackThreads, kPackThreads, 0, st>>>(
-        rs, out, scratch);
+  const int pack_blocks = (rs.n + kPackThreads - 1) / kPackThreads;
+  if (kAnyHit && kFat) {
+    bvh_fat_kernel_pack<<<pack_blocks, kPackThreads, 0, st>>>(rs, out, scratch);
+  } else if (kAnyHit) {
+    bvh_node_kernel_pack<<<pack_blocks, kPackThreads, 0, st>>>(rs, out, scratch);
   }
-  bvh_fat_kernel<kAnyHit><<<grid, kThreads, 0, st>>>(
-      (const int4*)table, (const float4*)tris, mask, rs, out, scratch);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ K7, K8
-
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-bvh_node_kernel(const int4* __restrict__ nodes, const float4* __restrict__ tris,
-                const unsigned char* __restrict__ mask, const Rays rs, const Out out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rs.n) return;
-  const Ray r = load_ray(rs, i);
-  Best b{INFINITY, -1, 0.0f, 0.0f};
-  bool occluded = false;
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
-  while (true) {
-    const int4* p = nodes + 2 * (long long)node;
-    const int4 q0 = __ldg(p);
-    const int4 q1 = __ldg(p + 1);
-    const float cap = kAnyHit ? r.tmax : fminf(r.tmax, b.t);
-    const bool hit = box_hit<true>(r, bits(q0.x), bits(q0.y), bits(q0.z),
-                                   bits(q0.w), bits(q1.x), bits(q1.y), cap);
-    const int left = q1.z;
-    const int count = q1.w;
-    if (hit && count > 0 && test_leaf<kAnyHit>(r, tris, mask, left, count, b)) {
-      occluded = true;
-      break;
-    }
-    if (hit && count == 0) {
-      if (sp < kStackDepth) stack[sp++] = left;
-      node = node + 1;
-    } else if (sp > 0) {
-      node = stack[--sp];
-    } else {
-      break;
-    }
+  // the any hits: one ray a lane, so a block for every kThreads rays (at
+  // least the resident grid, whose warps `lanes_for` spreads the rays over)
+  const int wave = (rs.n + kThreads - 1) / kThreads;
+  const int blocks = kAnyHit && wave > grid ? wave : grid;
+  if (kFat) {
+    bvh_fat_kernel<kAnyHit><<<blocks, kThreads, 0, st>>>(tree, rs, out, scratch, grid * kWarps);
+  } else {
+    bvh_node_kernel<kAnyHit><<<blocks, kThreads, 0, st>>>(tree, rs, out, scratch, grid * kWarps);
   }
-  write_out<kAnyHit>(out, i, b, occluded);
-}
-
-template <bool kAnyHit>
-int launch_node(const int* table, const float* tris, const unsigned char* mask, const Rays& rs,
-                const Out& out, void* stream) {
-  if (rs.n <= 0) return (int)cudaErrorInvalidValue;
-  bvh_node_kernel<kAnyHit><<<(rs.n + kThreads - 1) / kThreads, kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const int4*)table, (const float4*)tris, mask, rs, out);
   return (int)cudaGetLastError();
 }
 
@@ -563,22 +647,23 @@ int launch_node(const int* table, const float* tris, const unsigned char* mask, 
 extern "C" {
 
 // Every entry: `table` is the fat table (Ni, 16) int32 or the node table
-// (N, 8) int32, `tris` the (T, 12) float32 triangle rows in leaf order,
-// `mask` a (T,) byte per original triangle id or null. Ray component c of
-// ray i is at o[i * o_ray + c * o_comp] (likewise d). The fat entries take
-// `scratch`, num_r + 2 ints of device memory (the live count, the queue, the
-// list of live rays), whose first two they reset on `stream`. Launches on
-// `stream` without synchronising; returns cudaGetLastError() (or the error
-// of a call before the launches).
+// (N, 8) int32 (its row count `num_nodes` comes with it), `tris` the
+// (T, 12) float32 triangle rows in leaf order, `mask` a (T,) byte per
+// original triangle id or null. Ray component c of ray i is at
+// o[i * o_ray + c * o_comp] (likewise d). `scratch` is num_r + 2 ints of
+// device memory (the live count, the queue, the list of live rays), whose
+// first two the entry resets on `stream`. Launches on `stream` without
+// synchronising; returns cudaGetLastError() (or the error of a call before
+// the launches).
 int etx_bvh_intersect_fat(const int* table, const float* tris, const unsigned char* mask,
                           const float* o, int o_ray, int o_comp,
                           const float* d, int d_ray, int d_comp,
                           const float* t_min, const float* t_max, int num_r,
                           float* t_out, int* tri_out, float* u_out, float* v_out,
                           int* scratch, void* stream) {
-  return launch_fat<false>(table, tris, mask,
-                           Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
-                           Out{t_out, tri_out, u_out, v_out, nullptr}, scratch, stream);
+  return launch<false, true>(Tree{(const int4*)table, 0, (const float4*)tris, mask},
+                             Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                             Out{t_out, tri_out, u_out, v_out, nullptr}, scratch, stream);
 }
 
 int etx_bvh_occluded_fat(const int* table, const float* tris, const unsigned char* mask,
@@ -586,38 +671,49 @@ int etx_bvh_occluded_fat(const int* table, const float* tris, const unsigned cha
                          const float* d, int d_ray, int d_comp,
                          const float* t_min, const float* t_max, int num_r,
                          unsigned char* occ_out, int* scratch, void* stream) {
-  return launch_fat<true>(table, tris, mask,
-                          Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
-                          Out{nullptr, nullptr, nullptr, nullptr, occ_out}, scratch, stream);
+  return launch<true, true>(Tree{(const int4*)table, 0, (const float4*)tris, mask},
+                            Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                            Out{nullptr, nullptr, nullptr, nullptr, occ_out}, scratch, stream);
 }
 
-int etx_bvh_intersect_node(const int* table, const float* tris, const unsigned char* mask,
+int etx_bvh_intersect_node(const int* table, int num_nodes, const float* tris,
+                           const unsigned char* mask,
                            const float* o, int o_ray, int o_comp,
                            const float* d, int d_ray, int d_comp,
                            const float* t_min, const float* t_max, int num_r,
                            float* t_out, int* tri_out, float* u_out, float* v_out,
-                           void* stream) {
-  return launch_node<false>(table, tris, mask,
-                            Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
-                            Out{t_out, tri_out, u_out, v_out, nullptr}, stream);
+                           int* scratch, void* stream) {
+  return launch<false, false>(Tree{(const int4*)table, num_nodes, (const float4*)tris, mask},
+                              Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                              Out{t_out, tri_out, u_out, v_out, nullptr}, scratch, stream);
 }
 
-int etx_bvh_occluded_node(const int* table, const float* tris, const unsigned char* mask,
+int etx_bvh_occluded_node(const int* table, int num_nodes, const float* tris,
+                          const unsigned char* mask,
                           const float* o, int o_ray, int o_comp,
                           const float* d, int d_ray, int d_comp,
                           const float* t_min, const float* t_max, int num_r,
-                          unsigned char* occ_out, void* stream) {
-  return launch_node<true>(table, tris, mask,
-                           Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
-                           Out{nullptr, nullptr, nullptr, nullptr, occ_out}, stream);
+                          unsigned char* occ_out, int* scratch, void* stream) {
+  return launch<true, false>(Tree{(const int4*)table, num_nodes, (const float4*)tris, mask},
+                             Rays{o, o_ray, o_comp, d, d_ray, d_comp, t_min, t_max, num_r},
+                             Out{nullptr, nullptr, nullptr, nullptr, occ_out}, scratch, stream);
 }
 
 // K5 (any_hit 0) or K6 (1): blocks one SM of the current device holds at
 // once, and threads per block.
 int etx_bvh_fat_occupancy(int any_hit, int* blocks_per_sm, int* threads_per_block) {
   int total = 0;
-  const cudaError_t e = any_hit ? fat_resident<true>(blocks_per_sm, &total)
-                                : fat_resident<false>(blocks_per_sm, &total);
+  const cudaError_t e = any_hit ? resident<true, true>(blocks_per_sm, &total)
+                                : resident<false, true>(blocks_per_sm, &total);
+  *threads_per_block = kThreads;
+  return (int)e;
+}
+
+// The same for K7 (any_hit 0) or K8 (1).
+int etx_bvh_node_occupancy(int any_hit, int* blocks_per_sm, int* threads_per_block) {
+  int total = 0;
+  const cudaError_t e = any_hit ? resident<true, false>(blocks_per_sm, &total)
+                                : resident<false, false>(blocks_per_sm, &total);
   *threads_per_block = kThreads;
   return (int)e;
 }

@@ -19,10 +19,11 @@ package prefers when g++ can build it:
   with the JAX package's, with its native path turned off.
 
 `kernel_tables` turns a tree in this layout into the tables the BVH kernels
-read (`ops/bvh_trace.py`), once, when a scene is frozen. The kernels walk
-the tree with a per-ray stack of `STACK_DEPTH` entries (one per level below
-the root at most), so `kernel_tables` raises for a deeper tree, wherever it
-was built.
+read (`ops/bvh_trace.py`), once, when a scene is frozen. The fat-row
+kernels walk the tree with a per-ray stack of `STACK_DEPTH` entries (one
+per level below the root at most), so `kernel_tables` raises for a deeper
+tree, wherever it was built; the node kernels walk by skips, with no
+stack.
 """
 
 from __future__ import annotations
@@ -255,20 +256,25 @@ def kernel_tables(arrays) -> dict:
   tree without fat rows) and its triangles ("tri_v0", "tri_e1", "tri_e2").
 
   Returns {"bvh.node_table": (N,8) int32 (min(3), max(3) as float32 bits,
-  left, count), "bvh.prim_tris": (T,12) float32 (v0, e1, e2 of
-  prim_index[j], its id as int32 bits, 2 zeros)} and, with fat rows,
-  "bvh.fat_table": (Ni,16) int32 (the fat rows' boxes as float32 bits, then
-  L_first, R_first, counts, skip). Ids and counts are int32 here, where the
-  TPU tables carry them as float32. Raises ValueError for a tree deeper than
-  the kernels' traversal stack.
+  then for a leaf its first triangle row (node_left) and for an inner node
+  its skip (`compute_skip`: the first node after its subtree; its left
+  child is the next node), then count), "bvh.prim_tris": (T,12) float32
+  (v0, e1, e2 of prim_index[j], its id as int32 bits, 2 zeros)} and, with
+  fat rows, "bvh.fat_table": (Ni,16) int32 (the fat rows' boxes as float32
+  bits, then L_first, R_first, counts, skip). The node kernels walk by the
+  skips and need no right child: a leaf's skip is always its own index + 1.
+  Ids and counts are int32 here, where the TPU tables carry them as
+  float32. Raises ValueError for a tree deeper than the fat-row kernels'
+  traversal stack.
   """
   i32, f32 = np.int32, np.float32
   node_left = np.asarray(arrays["bvh.node_left"], i32)
   node_count = np.asarray(arrays["bvh.node_count"], i32)
   check_depth(node_left, node_count)
   boxes = [np.ascontiguousarray(arrays[f"bvh.node_{k}"], f32).view(i32) for k in ("min", "max")]
+  word6 = np.where(node_count > 0, node_left, compute_skip(node_left, node_count))
   tables = {"bvh.node_table": np.concatenate(
-      boxes + [node_left[:, None], node_count[:, None]], axis=1)}
+      boxes + [word6[:, None], node_count[:, None]], axis=1).astype(i32)}
   fat = arrays.get("bvh.fat_rows")
   if fat is not None:
     fat = np.asarray(fat, f32)

@@ -15,17 +15,21 @@ PyTorch version of the same signature beside it:
 They compute what the TPU kernels compute, not their layout. A TPU kernel
 walks one depth-first node stream shared by a tile of 128 x 8 rays (its
 vector unit has no per-lane control flow), so a tile visits the union of
-its rays' subtrees. Here each ray walks the same tree on its own stack in
-the same left-first pre-order: a fat row tests both children's boxes
-against min(t_max, best_t) (t_max for the any hits), tests a leaf child's
-triangles in place (left, then right), then descends into a hit left inner
-child, pushing a hit right inner child, or goes to the hit right inner
-child, or pops. A plain node tests its box; a leaf tests its triangles; a
-hit inner node pushes its right child and goes to its left child. A ray
-tests its leaves' triangles in the order the shared stream would, a
-subsequence of it, with the triangle test of `pallas_trace._tri_hit` and a
-strict `t < best_t`, so the same triangle wins an exact tie. The any hits
-stop a ray at its first valid triangle.
+its rays' subtrees. Here each ray walks the same tree on its own in the
+same left-first pre-order. Over the fat rows it walks a stack: a fat row
+tests both children's boxes against min(t_max, best_t) (t_max for the any
+hits), tests a leaf child's triangles in place (left, then right), then
+descends into a hit left inner child, pushing a hit right inner child, or
+goes to the hit right inner child, or pops. Over the plain nodes it walks
+by skips, with no stack, as the TPU stream does: a node tests its box; a
+hit leaf tests its triangles; the walk goes on to the next node after a
+hit inner node or a leaf, to the node's skip after a missed inner node,
+and ends past the last node (the source proves that this visits the nodes
+a stack walk visits, in its order). A ray tests its leaves' triangles in
+the order the shared stream would, a subsequence of it, with the triangle
+test of `pallas_trace._tri_hit` and a strict `t < best_t`, so the same
+triangle wins an exact tie. The any hits stop a ray at its first valid
+triangle.
 
 Box test: the slab with the axis-parallel intervals of the TPU kernels
 (an axis with |d| < 1e-12 is all or nothing by the origin's position) and
@@ -36,22 +40,23 @@ The mask (by original triangle id) is read per tested triangle, as
 `ops/bvh_build.kernel_tables` builds once when the scene is frozen
 (`BVH.fat_table`, `node_table`, `prim_tris`), with int32 ids and counts.
 
-K5/K6 skip a ray whose interval is empty (`dead_lanes`: !(t_min <= t_max),
-NaN included; such a ray has no valid triangle, since a hit wants
-t_min <= t <= t_max) and write its miss at once, and keep as many lanes of a
-warp busy as spread the live rays over every warp, at most 32, so a small
-batch runs a few rays a warp. K5 runs persistent warps that take rays from
-a queue and refill a lane when its ray ends; K6 first packs the live rays
-into a list (a second, small kernel) and its lanes walk fixed strides of
-it. Each ray makes exactly the steps of the plain walk, so the results are
-the same bits. The wrapper hands the kernels num_r + 2 ints of scratch (the
-live count, the queue, the list), which the launch resets on the stream,
-so a launch can be captured in a CUDA graph. K7/K8 run one ray per thread.
-The design notes and numbers are in the source.
+K5-K8 share one scheduler. They skip a ray whose interval is empty
+(`dead_lanes`: !(t_min <= t_max), NaN included; such a ray has no valid
+triangle, since a hit wants t_min <= t <= t_max) and write its miss at
+once, and keep as many lanes of a warp busy as spread the live rays over
+every warp, at most 32, so a small batch runs a few rays a warp. The
+closest hits (K5, K7) run persistent warps that take rays from a queue and
+refill a lane when its ray ends; the any hits (K6, K8) first pack the live
+rays into a list (a second, small kernel) and their lanes walk fixed
+strides of it. Each ray makes exactly the steps of the plain walk, so the
+results are the same bits. The wrapper hands the kernels num_r + 2 ints of
+scratch (the live count, the queue, the list), which the launch resets on
+the stream, so a launch can be captured in a CUDA graph. The design notes
+and numbers are in the source.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. The plain versions walk every ray's stack at
-once, vectorised over the rays that have not finished, and evaluate each
+launches the kernel or raises. The plain versions walk every ray at once,
+vectorised over the rays that have not finished, and evaluate each
 expression as the kernels do; `chip_smoke.py` holds each kernel against
 them on the card, and the CPU tests hold them against the TPU kernels'
 bodies run in interpret mode. `launches` counts kernel launches (never
@@ -78,7 +83,7 @@ launches = {"intersect_fat": 0, "occluded_fat": 0, "intersect_node": 0, "occlude
 
 
 def dead_lanes(t_min, t_max):
-  """(R,) bool: the rays K5/K6 skip, !(t_min <= t_max) (NaN included),
+  """(R,) bool: the rays K5-K8 skip, !(t_min <= t_max) (NaN included),
   compared in float32 as the kernels compare them. Such a ray has no valid
   triangle in any of the walks (a hit wants t_min <= t <= t_max); the
   kernels write its miss at once."""
@@ -169,14 +174,16 @@ def _test_leaves(ray, best, idx, first, count, prim_tris, tri_mask, any_hit, sta
 
 
 def _walk(bvh, o, d, t_min, t_max, tri_mask, fat: bool, any_hit: bool, stats=None) -> _Best:
-  """Every ray's stack walk at once (the plain version of K5-K8)."""
+  """Every ray's walk at once (the plain version of K5-K8): a stack walk
+  over the fat rows, a skip walk over the plain nodes."""
   num_r, dev = o.shape[0], o.device
   ray = _Rays(o, d, t_min, t_max)
   best = _Best(num_r, dev)
   table = bvh.fat_table if fat else bvh.node_table
   node = torch.zeros(num_r, dtype=torch.int32, device=dev)
-  stack = torch.zeros((num_r, STACK_DEPTH), dtype=torch.int32, device=dev)
-  sp = torch.zeros(num_r, dtype=torch.int64, device=dev)
+  if fat:
+    stack = torch.zeros((num_r, STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = torch.zeros(num_r, dtype=torch.int64, device=dev)
   act = torch.arange(num_r, device=dev)
   while act.numel() > 0:
     rows = table[node[act].long()]
@@ -193,31 +200,37 @@ def _walk(bvh, o, d, t_min, t_max, tri_mask, fat: bool, any_hit: bool, stats=Non
       leaf_r = hit_r & (count_r > 0)
       _test_leaves(ray, best, act[leaf_r], first_r[leaf_r], count_r[leaf_r],
                    bvh.prim_tris, tri_mask, any_hit, stats)
-      down = hit_l & (count_l == 0)
-      go_r = hit_r & (count_r == 0)
-      push, push_to = down & go_r, first_r
-      nxt = torch.where(down, first_l, first_r)
-      move = down | go_r
-      boxes = 2
     else:
       hit = _box_hit(ray, act, box[:, 0:3], box[:, 3:6], cap)
-      left, count = rows[:, 6], rows[:, 7]
+      # word 6: a leaf's first triangle row, an inner node's skip
+      word6, count = rows[:, 6], rows[:, 7]
       leaf = hit & (count > 0)
-      _test_leaves(ray, best, act[leaf], left[leaf], count[leaf],
+      _test_leaves(ray, best, act[leaf], word6[leaf], count[leaf],
                    bvh.prim_tris, tri_mask, any_hit, stats)
-      push = move = hit & (count == 0)
-      push_to, nxt = left, node[act] + 1
-      boxes = 1
     if stats is not None:
-      stats["boxes"] += boxes * int(act.numel())
+      stats["boxes"] += (2 if fat else 1) * int(act.numel())
       if "ray_rows" in stats:
         stats["ray_rows"][act] += 1
+    if not fat:
+      # the skip walk: the next node after a hit inner node or a leaf, the
+      # skip after a missed inner node; it ends past the last node (an
+      # any-hit ray also at its first valid triangle)
+      node[act] = torch.where(hit | (count > 0), node[act] + 1, word6)
+      go_on = node[act] < table.shape[0]
+      if any_hit:
+        go_on = go_on & ~best.occ[act]
+      act = act[go_on]
+      continue
+    down = hit_l & (count_l == 0)
+    go_r = hit_r & (count_r == 0)
+    push = down & go_r
+    move = down | go_r
     if any_hit:
       move = move & ~best.occ[act]
     pa = act[push & move]
-    stack[pa, sp[pa]] = push_to[push & move]
+    stack[pa, sp[pa]] = first_r[push & move]
     sp[pa] += 1
-    node[act[move]] = nxt[move]
+    node[act[move]] = torch.where(down, first_l, first_r)[move]
     # a ray that moves on nowhere pops its stack, or has finished (as has
     # an occluded one)
     pop = ~move & (sp[act] > 0)
@@ -276,20 +289,26 @@ _ENTRIES = {"intersect_fat": "etx_bvh_intersect_fat", "occluded_fat": "etx_bvh_o
 _lib = None
 
 
-def bind(lib, scratch: bool = True):
+def bind(lib, fat_scratch: bool = True, node_scratch: bool = True):
   """Sets the argument and result types of a built `csrc/bvh_trace.cu`
-  library's entries and returns it. `scratch`: the fat entries take K5/K6's
-  scratch and the library has `etx_bvh_fat_occupancy`, as this source's
-  does (an earlier source's may not)."""
+  library's entries and returns it. As this source's do (an earlier
+  source's may not): `fat_scratch`, the fat entries take scratch and the
+  library has `etx_bvh_fat_occupancy`; `node_scratch`, the node entries
+  take the node count after the table and scratch, and the library has
+  `etx_bvh_node_occupancy`."""
   for name, sym in _ENTRIES.items():
     fn = getattr(lib, sym)
+    fat = name.endswith("fat")
+    scratch = fat_scratch if fat else node_scratch
+    head = _COMMON[:1] + ([] if fat or not scratch else [_I]) + _COMMON[1:]
     outs = [_P, _P, _P, _P] if name.startswith("intersect") else [_P]
-    extra = [_P] if scratch and name.endswith("fat") else []
-    fn.argtypes = _COMMON + outs + extra + [_P]
+    fn.argtypes = head + outs + ([_P] if scratch else []) + [_P]
     fn.restype = _I
-  if scratch:
-    lib.etx_bvh_fat_occupancy.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    lib.etx_bvh_fat_occupancy.restype = _I
+  for form, scratch in (("fat", fat_scratch), ("node", node_scratch)):
+    if scratch:
+      fn = getattr(lib, f"etx_bvh_{form}_occupancy")
+      fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+      fn.restype = _I
   lib.etx_bvh_error_string.argtypes = [_I]
   lib.etx_bvh_error_string.restype = ctypes.c_char_p
   return lib
@@ -345,28 +364,31 @@ def _launch(name, bvh, o, d, t_min, t_max, tri_mask, outs):
   if num_r == 0:
     return
   lib = _library()
-  # K5/K6's scratch: the live count and the queue (reset by the launch on
-  # the stream), then the list of live rays
-  scratch = [torch.empty(num_r + 2, dtype=torch.int32, device=o.device)] if fat else []
+  # the scratch: the live count and the queue (reset by the launch on the
+  # stream), then the list of live rays
+  scratch = torch.empty(num_r + 2, dtype=torch.int32, device=o.device)
+  # the node walk ends past the last node
+  rows = [] if fat else [table.shape[0]]
   with torch.cuda.device(o.device):
     stream = torch.cuda.current_stream(o.device).cuda_stream
     rc = getattr(lib, _ENTRIES[name])(
-        table.data_ptr(), bvh.prim_tris.data_ptr(),
+        table.data_ptr(), *rows, bvh.prim_tris.data_ptr(),
         None if tri_mask is None else tri_mask.data_ptr(),
         o.data_ptr(), o.stride(0), o.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
-        t_min.data_ptr(), t_max.data_ptr(), num_r, *(x.data_ptr() for x in [*outs, *scratch]),
+        t_min.data_ptr(), t_max.data_ptr(), num_r, *(x.data_ptr() for x in [*outs, scratch]),
         stream)
   _raise_on(rc, name)
   launches[name] += 1
 
 
-def fat_occupancy(any_hit: bool) -> tuple[int, int]:
-  """(blocks per SM, threads per block) of K6 (any_hit) or K5 on the
-  current device, by the CUDA runtime's occupancy calculator: K5/K6 launch
-  that many blocks on every SM, or fewer for a small batch."""
+def occupancy(fat: bool, any_hit: bool) -> tuple[int, int]:
+  """(blocks per SM, threads per block) of K6 (fat, any_hit), K5 (fat), K8
+  (any_hit) or K7 on the current device, by the CUDA runtime's occupancy
+  calculator: K5-K8 launch that many blocks on every SM, or fewer for a
+  small batch."""
   blocks, threads = _I(0), _I(0)
-  _raise_on(_library().etx_bvh_fat_occupancy(int(any_hit), ctypes.byref(blocks),
-                                              ctypes.byref(threads)), "occupancy")
+  fn = _library().etx_bvh_fat_occupancy if fat else _library().etx_bvh_node_occupancy
+  _raise_on(fn(int(any_hit), ctypes.byref(blocks), ctypes.byref(threads)), "occupancy")
   return blocks.value, threads.value
 
 

@@ -67,7 +67,8 @@ class BVH(NamedTuple):
   once when the scene is frozen, so no trace call builds a table), on the
   scene's device. The tree itself, in the JAX package's layout, stays in
   the scene's numpy arrays (`SceneBuilder.arrays`)."""
-  node_table: torch.Tensor  # (N,8) int32: min(3), max(3) as float32 bits, left, count
+  node_table: torch.Tensor  # (N,8) int32: min(3), max(3) as float32 bits, a leaf's
+                            # first triangle row or an inner node's skip, count
   fat_table: Optional[torch.Tensor]  # (Ni,16) int32: fat rows, boxes as float32
                                      # bits, L_first, R_first, counts, skip as int32
   prim_tris: torch.Tensor   # (T,12) float32: v0, e1, e2 of prim_index[j], its

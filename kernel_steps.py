@@ -17,18 +17,30 @@ both times printed. A time is `chip_smoke.kernel_ms`: the profiler's device
 time per call of the family's kernels. --sass writes each library's SASS to
 DIR.
 
-`bvh`: K5/K6 (`csrc/bvh_trace.cu`) on bigscene's tree. The variant: each
-slab choosing its axis's near and far plane by the sign of the ray's inverse
-direction in place of fminf/fmaxf ("sign-select slab"). A library without
+`bvh`: K5/K6 on bigscene's tree and K7/K8 on the same tree without its fat
+rows (`csrc/bvh_trace.cu`). The variants: each slab choosing its axis's
+near and far plane by the sign of the ray's inverse direction in place of
+fminf/fmaxf ("sign-select slab"); K7/K8 walking the nodes on a stack in
+local memory, on this tree's scheduler ("stack walk": a hit inner node
+pushes its right child, a leaf or a missed node pops), which reads word 6
+of an inner node as its right child, as the parent's K7/K8 do: those
+builds get the node table in that layout; the closest hits' lanes stepping
+1, 4 or 16 times between their warp's votes in place of 8 ("one step a
+vote", ...); the any hits' lanes taking fixed strides of the packed list
+on the resident grid in place of one ray a lane on a grid over the batch
+("strided any hit"). A library without
 `etx_bvh_fat_occupancy` is bound as an earlier source's whose K5/K6 entries
-take no scratch. Ray sets: every K5/K6 call of one iteration of the
-bigscene main path at 512x512 (summed); 2^12, 2^16, 2^18 and 2^20 test rays
-from inside the room (`chip_smoke.test_rays`); the 1% of the 2^18 test rays
-whose plain walk makes the most steps; the closest-hit and shadow rays of
-the main path's bounce 2 (`chip_smoke.capture_bounce`). It also counts the
-SASS of one fat row's step up to its leaves: a probe kernel, built around
-the source's `box_hit`, that loads one row and tests both its boxes (for
-this tree's sources with and without the parallel-axis override).
+take no scratch, one without `etx_bvh_node_occupancy` as one whose K7/K8
+entries take neither the node count nor scratch. Ray sets, for each pair:
+every call of one iteration of the bigscene main path at 512x512 (summed;
+K7/K8's from the render without fat rows); 2^12, 2^16, 2^18 and 2^20 test
+rays from inside the room (`chip_smoke.test_rays`); the 1% of the 2^18
+test rays whose plain walk makes the most steps; the closest-hit and
+shadow rays of the main path's bounce 2 (`chip_smoke.capture_bounce`). It
+also counts the SASS of one fat row's step up to its leaves: a probe
+kernel, built around the source's `box_hit`, that loads one row and tests
+both its boxes (for this tree's sources with and without the
+parallel-axis override).
 
 `brute`: K1/K2 (`csrc/brute_trace.cu`) on the 512x512 Cornell box. The
 variants: nvcc's own 1 / det ("division") or __frcp_rn ("frcp") in place of
@@ -79,6 +91,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -87,6 +100,7 @@ import chip_smoke
 from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute_trace, bvh_trace, woop_trace
 from etx_tracer_tpu_torch.scene import bigscene
+from etx_tracer_tpu_torch.scene import types as scene_types
 
 # the slab lines of csrc/bvh_trace.cu, and the sign-select slab that the
 # study puts in their place: for a box with mn <= mx and a finite nonzero iv
@@ -120,6 +134,46 @@ extern "C" __global__ void {name}(const int4* __restrict__ fat, const Ray* __res
   out[i] = (hit_l ? q3.x : 0) + (hit_r ? q3.y : 0) + q3.z;
 }}
 """
+# the move of csrc/bvh_trace.cu's node walk by skips, and the stack walk
+# that the study puts in its place (word 6 of an inner node then holds its
+# right child)
+SKIP_MOVE = """  w.row = hit || count > 0 ? w.row + 1 : q1.z;
+  return w.row >= tree.num_rows;
+"""
+STACK_MOVE = """  if (hit && count == 0) {
+    if (w.sp < kStackDepth) stack[w.sp++] = q1.z;
+    w.row = w.row + 1;
+  } else if (w.sp > 0) {
+    w.row = stack[--w.sp];
+  } else {
+    return true;
+  }
+  return false;
+"""
+STEPS = "constexpr int kStepsPerVote = 8;"
+# the any hits' lanes taking fixed strides of the list on the resident grid
+# (this tree's earlier design), where each lane now takes one ray and
+# the grid covers the batch
+STRIDED = [
+    ("""    const int j = warp_id * target + lane;
+    if (lane >= target || j >= n) return;
+""", """    if (lane >= target) return;
+    for (int j = warp_id * target + lane; j < n; j += warps * target) {
+"""),
+    ("""    write_out<kAnyHit>(out, i, b, occluded);
+    return;
+""", """    write_out<kAnyHit>(out, i, b, occluded);
+    }
+    return;
+"""),
+    ("  const int blocks = kAnyHit && wave > grid ? wave : grid;\n",
+     "  const int blocks = grid;\n")]
+BVH_VARIANTS = {
+    "one step a vote": [(STEPS, "constexpr int kStepsPerVote = 1;")],
+    "4 steps a vote": [(STEPS, "constexpr int kStepsPerVote = 4;")],
+    "16 steps a vote": [(STEPS, "constexpr int kStepsPerVote = 16;")],
+    "strided any hit": STRIDED,
+}
 # csrc/brute_trace.cu's lines that a K1/K2 variant replaces: (old, new)
 U_LINE = "  u = (tx * px + ty * py + tz * pz) * inv_det;\n"
 RCP_LINE = "  const float inv_det = reciprocal(det);\n"
@@ -321,10 +375,11 @@ def check_builds(libs: dict, sets, call, plain, variants):
                           else "bit-equal to the plain versions on every ray set"), flush=True)
 
 
-def time_in_turns(libs: dict, sets, call, kernel_name: str, names: dict):
+def time_in_turns(libs: dict, sets, call, kernel_name, names: dict):
   """Each build's device time a call on every set (for a list of ray
   tuples, the mean per launch over the list's calls times their number),
-  in order and then reversed; prints both."""
+  in order and then reversed; prints both. `kernel_name`: the profiled
+  kernels' name, or a dict of it by the set's kind."""
   times = {}
   order = list(libs.items())
   for seq in (order, order[::-1]):
@@ -332,7 +387,8 @@ def time_in_turns(libs: dict, sets, call, kernel_name: str, names: dict):
       for rays_label, kind, geo, rays in sets:
         # one profiled run of the set's calls: the mean per launch times the calls
         calls = [functools.partial(call, lib, kind, geo, r) for r in each(rays)]
-        ms = chip_smoke.kernel_ms(lambda: [c() for c in calls], kernel_name, REPS) * len(calls)
+        profiled = kernel_name[kind] if isinstance(kernel_name, dict) else kernel_name
+        ms = chip_smoke.kernel_ms(lambda: [c() for c in calls], profiled, REPS) * len(calls)
         times.setdefault((rays_label, kind), {}).setdefault(label, []).append(ms)
   for (rays_label, kind), by_label in times.items():
     print(f"{names[kind]} on {rays_label} (ms a call, in order / reversed):", flush=True)
@@ -340,55 +396,103 @@ def time_in_turns(libs: dict, sets, call, kernel_name: str, names: dict):
       print(f"  {label:18s} {a:.4f} / {b:.4f}", flush=True)
 
 
-# ------------------------------------------------------------------ K5/K6
+# ------------------------------------------------------------------ K5-K8
 
 
 BVH_KERNELS = (("bvh_fat_kernel_pack", "K6 pack"), ("bvh_fat_kernelILb1E", "K6"),
-               ("bvh_fat_kernelILb0E", "K5"))
+               ("bvh_fat_kernelILb0E", "K5"), ("bvh_node_kernel_pack", "K8 pack"),
+               ("bvh_node_kernelILb1E", "K8"), ("bvh_node_kernelILb0E", "K7"))
+BVH_PROFILED = {"K5": "bvh_fat_kernel", "K6": "bvh_fat_kernel", "K7": "bvh_node_kernel",
+                "K8": "bvh_node_kernel"}
+# each kernel's wrapper in ops/bvh_trace.py (and `{name}_plain`, its plain walk)
+BVH_WRAPPERS = {"K5": "intersect_fat", "K6": "occluded_fat", "K7": "intersect_node",
+                "K8": "occluded_node"}
 
 
-def bvh_call(lib, kind: str, scratch: bool, bvh, rays):
-  """K5 (kind 'closest') or K6 of a bound library on `rays`, as
+class BvhLib(NamedTuple):
+  lib: ctypes.CDLL
+  fat_scratch: bool   # K5/K6 take scratch
+  node_scratch: bool  # K7/K8 take the node count and scratch
+  stack_nodes: bool   # K7/K8 read word 6 of an inner node as its right child
+
+
+class BvhGeo(NamedTuple):
+  bvh: object          # the tree (its node table in this tree's layout)
+  stack_nodes: object  # the node table with an inner node's right child in word 6
+
+
+def stack_node_table(nodes):
+  """The node table with word 6 of each inner node its right child, as the
+  parent's K7/K8 and the stack walk read it: the skip of the left child
+  (the next node), which for a leaf is its index + 1."""
+  n = nodes.shape[0]
+  nxt = torch.clamp(torch.arange(n, device=nodes.device) + 1, max=n - 1)
+  count, word6 = nodes[:, 7], nodes[:, 6]
+  skip_next = torch.where(count[nxt] > 0, nxt + 1, word6[nxt].long()).to(torch.int32)
+  out = nodes.clone()
+  out[:, 6] = torch.where(count > 0, word6, skip_next)
+  return out
+
+
+def bvh_call(lib: BvhLib, kind: str, geo: BvhGeo, rays):
+  """K5-K8 (`kind`) of a bound library on `rays`, as
   `ops/bvh_trace.py:_launch` calls this tree's; returns the outputs."""
   o, d, t_min, t_max = rays
   n, dev = o.shape[0], o.device
-  if kind == "closest":
+  fat = kind in ("K5", "K6")
+  if kind in ("K5", "K7"):
     outs = [torch.empty(n, dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
   else:
     outs = [torch.empty(n, dtype=torch.bool, device=dev)]
+  scratch = lib.fat_scratch if fat else lib.node_scratch
   extra = [torch.empty(n + 2, dtype=torch.int32, device=dev)] if scratch else []
-  fn = lib.etx_bvh_intersect_fat if kind == "closest" else lib.etx_bvh_occluded_fat
-  rc = fn(bvh.fat_table.data_ptr(), bvh.prim_tris.data_ptr(), None,
+  if fat:
+    table, rows = geo.bvh.fat_table, []
+  else:
+    table = geo.stack_nodes if lib.stack_nodes else geo.bvh.node_table
+    rows = [table.shape[0]] if scratch else []
+  fn = getattr(lib.lib, bvh_trace._ENTRIES[BVH_WRAPPERS[kind]])
+  rc = fn(table.data_ptr(), *rows, geo.bvh.prim_tris.data_ptr(), None,
           o.data_ptr(), o.stride(0), o.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
           t_min.data_ptr(), t_max.data_ptr(), n, *(x.data_ptr() for x in [*outs, *extra]),
           torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
-    raise RuntimeError(f"kernel_steps: launch failed: {lib.etx_bvh_error_string(rc).decode()}")
+    raise RuntimeError(f"kernel_steps: launch failed: "
+                       f"{lib.lib.etx_bvh_error_string(rc).decode()}")
   return outs
 
 
-def bvh_ray_sets(rng, scene, dev, config):
-  """[(label, kind, bvh, rays)]: the sets every K5/K6 build is checked and
-  timed on."""
-  bvh = scene.bvh
+def bvh_plain(kind: str, geo: BvhGeo, rays, stats=None):
+  out = getattr(bvh_trace, f"{BVH_WRAPPERS[kind]}_plain")(geo.bvh, *rays, stats=stats)
+  return list(out) if kind in ("K5", "K7") else [out]
+
+
+def bvh_ray_sets(rng, scenes, dev, config):
+  """[(label, kind, geometry, rays)]: the sets every build is checked and
+  timed on; `scenes` maps the pairs ("K5", "K6") and ("K7", "K8") to the
+  scene they trace (bigscene with and without its fat rows)."""
+  geos = {pair: BvhGeo(sc.bvh, stack_node_table(sc.bvh.node_table))
+          for pair, sc in scenes.items()}
   sets = []
   for k in (12, 16, 18, 20):
-    rays = chip_smoke.test_rays(rng, *scene[:3], 1 << k, dev, chip_smoke.ROOM)
-    sets += [(f"2^{k} test rays", kind, bvh, rays) for kind in ("closest", "anyhit")]
+    rays = chip_smoke.test_rays(rng, *next(iter(scenes.values()))[:3], 1 << k, dev,
+                                chip_smoke.ROOM)
+    sets += [(f"2^{k} test rays", kind, geo, rays) for pair, geo in geos.items() for kind in pair]
     if k == 18:
       test = rays
-  for kind, plain in (("closest", bvh_trace.intersect_fat_plain),
-                      ("anyhit", bvh_trace.occluded_fat_plain)):
-    zeros = lambda: torch.zeros(test[0].shape[0], dtype=torch.int64, device=dev)
-    stats = {"boxes": 0, "tris": 0, "ray_rows": zeros(), "ray_tris": zeros()}
-    plain(bvh, *test, stats=stats)
-    steps = stats["ray_rows"] + stats["ray_tris"]
-    long = steps > steps.double().quantile(0.99)
-    sets.append((f"the 2^18 test rays' longest 1% ({int(long.sum())})", kind, bvh,
-                 tuple(x[long].contiguous() for x in test)))
-  closest, shadow = chip_smoke.capture_bounce(scene, config, dev, chip_smoke.CAPTURE_BOUNCE)
-  sets += [("bounce 2", "closest", bvh, closest), ("bounce 2", "anyhit", bvh, shadow)]
+  for pair, geo in geos.items():
+    for kind in pair:
+      zeros = lambda: torch.zeros(test[0].shape[0], dtype=torch.int64, device=dev)
+      stats = {"boxes": 0, "tris": 0, "ray_rows": zeros(), "ray_tris": zeros()}
+      bvh_plain(kind, geo, test, stats)
+      steps = stats["ray_rows"] + stats["ray_tris"]
+      long = steps > steps.double().quantile(0.99)
+      sets.append((f"the 2^18 test rays' longest 1% ({int(long.sum())})", kind, geo,
+                   tuple(x[long].contiguous() for x in test)))
+    closest, shadow = chip_smoke.capture_bounce(scenes[pair], config, dev,
+                                                chip_smoke.CAPTURE_BOUNCE)
+    sets += [("bounce 2", pair[0], geo, closest), ("bounce 2", pair[1], geo, shadow)]
   return sets
 
 
@@ -396,7 +500,10 @@ def bvh_main(args, dev, out_dir: Path) -> None:
   src = _build.SRC_DIR / "bvh_trace.cu"
   srcs = {"this tree": src,
           "sign-select slab": variant(src, out_dir / "bvh_trace_sign.cu",
-                                      [(MINMAX_SLAB, SIGN_SLAB)])}
+                                      [(MINMAX_SLAB, SIGN_SLAB)]),
+          "stack walk": variant(src, out_dir / "bvh_trace_stack.cu", [(SKIP_MOVE, STACK_MOVE)]),
+          **{label: variant(src, out_dir / f"bvh_trace_{k}.cu", edits)
+             for k, (label, edits) in enumerate(BVH_VARIANTS.items())}}
   if args.parent is not None:
     srcs = {"parent": args.parent / "etx_tracer_tpu_torch/csrc/bvh_trace.cu", **srcs}
   builds = {}
@@ -411,9 +518,11 @@ def bvh_main(args, dev, out_dir: Path) -> None:
   for label, (lib_path, cubin, procs, probes) in builds.items():
     log = finish_build(label, procs)
     raw = ctypes.CDLL(str(lib_path))
-    # a source whose K5/K6 entries take scratch also reports their occupancy
-    scratch = hasattr(raw, "etx_bvh_fat_occupancy")
-    libs[label] = (bvh_trace.bind(raw, scratch=scratch), scratch)
+    # a source whose entries take scratch also reports their occupancy
+    fat_scratch = hasattr(raw, "etx_bvh_fat_occupancy")
+    node_scratch = hasattr(raw, "etx_bvh_node_occupancy")
+    libs[label] = BvhLib(bvh_trace.bind(raw, fat_scratch, node_scratch), fat_scratch,
+                         node_scratch, not node_scratch or label == "stack walk")
     whole = {k: len(v) for k, v in named(sass(lib_path, args.sass / f"{lib_path.stem}.sass"
                                               if args.sass else None), BVH_KERNELS).items()}
     probe = {k: len(v) for k, v in sass(cubin, None).items()}
@@ -422,26 +531,32 @@ def bvh_main(args, dev, out_dir: Path) -> None:
     note += f" | SASS instructions {whole}"
     note += " | one row's loads and box tests " + ", ".join(
         f"{name} {probe[f'etx_probe_{name}']}" for name in probes)
-    if scratch:
+    for form, scratch in (("fat", fat_scratch), ("node", node_scratch)):
+      if not scratch:
+        continue
       for any_hit in (False, True):
         blocks, threads = _I(0), _I(0)
-        libs[label][0].etx_bvh_fat_occupancy(int(any_hit), ctypes.byref(blocks),
-                                             ctypes.byref(threads))
-        note += f" | {'K6' if any_hit else 'K5'} {blocks.value} blocks of {threads.value} an SM"
+        getattr(raw, f"etx_bvh_{form}_occupancy")(int(any_hit), ctypes.byref(blocks),
+                                                   ctypes.byref(threads))
+        kernel = {("fat", False): "K5", ("fat", True): "K6", ("node", False): "K7",
+                  ("node", True): "K8"}[form, any_hit]
+        note += f" | {kernel} {blocks.value} blocks of {threads.value} an SM"
     print(f"build {label}: {note}", flush=True)
 
   scene, config = chip_smoke.bigscene_scene((512, 512), dev)
-  sets = bvh_ray_sets(np.random.default_rng(20261017), scene, dev, config)
-  call = lambda lib, kind, bvh, rays: bvh_call(lib[0], kind, lib[1], bvh, rays)
-  plain = lambda kind, bvh, rays: (list(bvh_trace.intersect_fat_plain(bvh, *rays))
-                                   if kind == "closest"
-                                   else [bvh_trace.occluded_fat_plain(bvh, *rays)])
-  check_builds(libs, sets, call, plain, ("sign-select slab",))
-  calls = main_path_calls(scene, config, dev)
-  sets += [("main path, one iteration's calls summed", kind, scene.bvh,
-            [rays for k, rays in calls if k == kind]) for kind in ("closest", "anyhit")]
+  nofat = scene._replace(bvh=scene_types.without_fat_rows(scene.bvh))
+  scenes = {("K5", "K6"): scene, ("K7", "K8"): nofat}
+  sets = bvh_ray_sets(np.random.default_rng(20261017), scenes, dev, config)
+  check_builds(libs, sets, bvh_call, bvh_plain, ("sign-select slab", "stack walk",
+                                                 *BVH_VARIANTS))
+  for pair, sc in scenes.items():
+    calls = main_path_calls(sc, config, dev)
+    geo = next(g for _, kind, g, _ in sets if kind == pair[0])
+    sets += [("main path, one iteration's calls summed", kind, geo,
+              [rays for k, rays in calls if k == want])
+             for kind, want in zip(pair, ("closest", "anyhit"))]
   print_live(sets, bvh_trace.dead_lanes)
-  time_in_turns(libs, sets, call, "bvh_fat_kernel", {"closest": "K5", "anyhit": "K6"})
+  time_in_turns(libs, sets, bvh_call, BVH_PROFILED, {k: k for k in BVH_PROFILED})
 
 
 # ------------------------------------------------------------------ K1/K2
@@ -813,7 +928,7 @@ def print_live(sets, dead_lanes):
 
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  ap.add_argument("family", choices=("bvh", "brute", "woop"), help="K5/K6, K1/K2 or K9a/K9b")
+  ap.add_argument("family", choices=("bvh", "brute", "woop"), help="K5-K8, K1/K2 or K9a/K9b")
   ap.add_argument("--parent", type=Path, help="an earlier checkout (a git archive)")
   ap.add_argument("--sass", type=Path, help="directory for each library's SASS")
   args = ap.parse_args()

@@ -221,13 +221,22 @@ _PLAIN = {"fat": (bvh_trace.intersect_fat_plain, bvh_trace.occluded_fat_plain),
 
 @pytest.mark.parametrize("tree,num_t,masked,seed", [
     ("fat", 600, False, 40), ("fat", 1100, True, 41),
-    ("node", 600, True, 42), ("node", 1100, False, 43)])
+    ("node", 600, True, 42), ("node", 1100, False, 43),
+    ("node-dead", 600, True, 44), ("node-dead", 1100, False, 45)])
 def test_bvh_plain_matches_tpu_kernel_body(monkeypatch, tree, num_t, masked, seed):
   """K5-K8's plain versions against the TPU kernels' bodies in interpret
-  mode, on the same numpy tree."""
+  mode, on the same numpy tree; "node-dead": the node walk with dead lanes
+  (empty intervals, which K5-K8 skip) among live ones."""
   rng = np.random.default_rng(seed)
   v0, e1, e2 = _tris(rng, num_t)
   o, d, t_min, t_max = _rays(rng, v0, e2, 384)
+  if tree == "node-dead":
+    tree = "node"
+    t_max[0::7] = 0.0
+    t_max[3::11] = -0.0
+    t_min[1::13] = np.nan
+    t_min[2::5] = np.nextafter(t_max[2::5], np.float32(np.inf))
+  dead = ~(t_min <= t_max)
   mask = rng.uniform(size=num_t) > 0.3 if masked else None
   _numpy_tree(monkeypatch)
   jbvh = _jax_bvh(v0, e1, e2)
@@ -261,6 +270,9 @@ def test_bvh_plain_matches_tpu_kernel_body(monkeypatch, tree, num_t, masked, see
   np.testing.assert_array_equal(np.isinf(rt), rtri < 0)
   assert np.all(gtri[t_max <= 0.0] == -1) and not occ[t_max <= 0.0].any()
   np.testing.assert_array_equal(occ, gtri >= 0)
+  # an empty interval: the miss record in both
+  assert np.all(gtri[dead] == -1) and np.all(rtri[dead] == -1)
+  assert not occ[dead].any() and not rocc[dead].any()
 
 
 def test_fat_and_node_walks_agree():

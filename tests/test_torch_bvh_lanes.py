@@ -1,6 +1,7 @@
-"""The fat-row BVH kernels' skip test, and the plain walks on mixed lanes (CPU).
+"""The BVH kernels' skip test, their node walk by skips, and the plain walks
+on mixed lanes (CPU).
 
-The CUDA kernels K5/K6 (`etx_tracer_tpu_torch/csrc/bvh_trace.cu`) skip a ray
+The CUDA kernels K5-K8 (`etx_tracer_tpu_torch/csrc/bvh_trace.cu`) skip a ray
 whose interval is empty, !(t_min <= t_max) with NaN included
 (`bvh_trace.dead_lanes`), and write its miss record at once; the plain walks
 (`bvh_trace.intersect_fat_plain`, `occluded_fat_plain`, and the node forms)
@@ -11,6 +12,12 @@ values at the extremes, show that the boundary t_min == t_max is walked and
 hits, and hold the plain walks on bigscene rays with dead lanes interleaved
 to the results of the live rays alone, which is what the kernels' packing of
 live rays rests on.
+
+K7/K8 and their plain walk go through the nodes by skips, with no stack
+(word 6 of a node row: a leaf's first triangle row, an inner node's skip).
+Tests here hold the node table to that layout and the skip walk to a stack
+walk kept in this file: the same nodes in the same order, on seeded trees
+and the comb, under hit predicates that depend on the walk's history.
 """
 
 import numpy as np
@@ -21,6 +28,7 @@ from hypothesis import strategies as st
 
 import chip_smoke
 from etx_tracer_tpu_torch.ops import brute_trace, bvh_build, bvh_trace
+from etx_tracer_tpu_torch.scene import bigscene
 from etx_tracer_tpu_torch.scene import types as scene_types
 
 torch.set_num_threads(1)
@@ -132,7 +140,8 @@ def test_an_interval_of_one_point_is_walked_and_hits(form):
       assert float(hit.u) == 0.25 and float(hit.v) == 0.25
 
 
-@pytest.mark.parametrize("form,masked", [("fat", False), ("fat", True), ("node", False)])
+@pytest.mark.parametrize("form,masked", [("fat", False), ("fat", True), ("node", False),
+                                         ("node", True)])
 @settings(max_examples=8, deadline=None)
 @given(dead=st.lists(st.booleans(), min_size=64, max_size=64),
        interval=st.sampled_from(DEAD), offset=st.integers(0, 192))
@@ -185,7 +194,7 @@ def test_lane_variants_hold_the_patterns_the_kernels_skip(big):
 
 def test_per_ray_counts_add_up_to_the_walks_totals(big):
   bvh, rays = big
-  for form, any_hit in (("fat", False), ("fat", True), ("node", False)):
+  for form, any_hit in (("fat", False), ("fat", True), ("node", False), ("node", True)):
     b = bvh if form == "fat" else scene_types.without_fat_rows(bvh)
     zeros = lambda: torch.zeros(rays[0].shape[0], dtype=torch.int64)
     stats = {"boxes": 0, "tris": 0, "ray_rows": zeros(), "ray_tris": zeros()}
@@ -196,11 +205,14 @@ def test_per_ray_counts_add_up_to_the_walks_totals(big):
 
 
 def test_plain_walks_take_a_stack_as_deep_as_the_kernels_do():
-  # a comb 61 levels deep: the fat walk pushes 60 of the 64 entries; every
-  # box is the scene's, so the walk tests every triangle, in index order
+  # a comb 61 levels deep: the fat walk pushes 60 of the 64 entries (the
+  # node walk needs no stack); every box is the scene's, so the walk tests
+  # every triangle, in index order
   rng = np.random.default_rng(21)
-  tris, bvh = chip_smoke.comb_tree(rng, 61, "cpu")
-  left, count = bvh.node_table[:, 6].numpy(), bvh.node_table[:, 7].numpy()
+  arrays = chip_smoke.comb_arrays(rng, 61)
+  tris = [torch.from_numpy(arrays[k]) for k in ("tri_v0", "tri_e1", "tri_e2")]
+  bvh = scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), "cpu")
+  left, count = arrays["bvh.node_left"], arrays["bvh.node_count"]
   assert bvh_build.tree_depth(left, count) == 61 <= bvh_build.STACK_DEPTH
   assert bvh.fat_table.shape[0] == 121
   rays = chip_smoke.test_rays(rng, *tris, 256, "cpu")
@@ -223,3 +235,102 @@ def test_work_line_counts_the_lane_slots_of_warps_of_32():
   assert f"fat rows a ray mean {71 / 36:.2f} p99 " in line
   assert f"max 32, useful lane share {share:.3f}" in line
   assert "triangle tests a ray mean 0.00 p99 0 max 0, useful lane share 0.000" in line
+
+
+def _subtree_ends(node_left, node_count):
+  """end[i]: the first node after subtree(i) in pre-order, by recursion on
+  the tree (a leaf ends at i + 1, an inner node where its right child's
+  subtree ends), not by `bvh_build.compute_skip`."""
+  end = np.zeros(len(node_left), np.int64)
+  for i in reversed(range(len(node_left))):   # a right child follows its parent
+    end[i] = i + 1 if node_count[i] > 0 or len(node_left) == 1 else end[node_left[i]]
+  return end
+
+
+def _tree_arrays(which):
+  if which == "bigscene":
+    return bigscene.build_bigscene((16, 16)).arrays()[0]
+  if which == "comb":
+    return chip_smoke.comb_arrays(np.random.default_rng(21), 61)
+  rng = np.random.default_rng(int(which.removeprefix("soup")))
+  num_t = int(which.removeprefix("soup"))
+  v0 = rng.uniform(-1.0, 1.0, (num_t, 3)).astype(F32)
+  e1 = rng.uniform(-0.4, 0.4, (num_t, 3)).astype(F32)
+  e2 = rng.uniform(-0.4, 0.4, (num_t, 3)).astype(F32)
+  return {"tri_v0": v0, "tri_e1": e1, "tri_e2": e2,
+          **{f"bvh.{k}": v for k, v in bvh_build.build_bvh(v0, e1, e2).items()}}
+
+
+@pytest.mark.parametrize("which", ["bigscene", "comb"])
+def test_node_word6_is_a_leafs_first_triangle_or_an_inner_nodes_skip(which):
+  arrays = _tree_arrays(which)
+  left, count = arrays["bvh.node_left"], arrays["bvh.node_count"]
+  table = bvh_build.kernel_tables(arrays)["bvh.node_table"]
+  assert table.dtype == np.int32 and table.shape == (len(left), 8)
+  word6, leaf = table[:, 6], count > 0
+  assert leaf.any() and (~leaf).any()
+  np.testing.assert_array_equal(word6[leaf], left[leaf])
+  np.testing.assert_array_equal(word6[~leaf], _subtree_ends(left, count)[~leaf])
+  np.testing.assert_array_equal(table[:, 7], count)
+  # an inner node's left child is the next node, its right child the next
+  # node's skip; a leaf's skip is its own index + 1
+  inner = np.flatnonzero(~leaf)
+  ends = _subtree_ends(left, count)
+  np.testing.assert_array_equal(ends[inner + 1], left[inner])
+  np.testing.assert_array_equal(ends[leaf], np.flatnonzero(leaf) + 1)
+
+
+def _stack_walk(left, count, hit):
+  """The nodes a stack walk visits: at a hit inner node it pushes the right
+  child and goes to the next node; at a leaf or a missed node it pops, or
+  ends. `hit(node, k)`, k the hit leaves so far."""
+  seen, stack, node, k = [], [], 0, 0
+  while True:
+    seen.append(node)
+    h = hit(node, k)
+    if h and count[node] > 0:
+      k += 1
+    if h and count[node] == 0:
+      stack.append(int(left[node]))
+      node += 1
+    elif stack:
+      node = stack.pop()
+    else:
+      return seen
+
+
+def _skip_walk(table, hit):
+  """The nodes the kernels' skip walk visits over a node table."""
+  seen, node, k = [], 0, 0
+  word6, count = table[:, 6], table[:, 7]
+  while node < table.shape[0]:
+    seen.append(node)
+    h = hit(node, k)
+    if h and count[node] > 0:
+      k += 1
+    node = node + 1 if h or count[node] > 0 else int(word6[node])
+  return seen
+
+
+@pytest.mark.parametrize("which", ["soup1", "soup5", "soup9", "soup60", "soup700", "soup2500",
+                                   "soup5000", "comb"])
+def test_skip_walk_visits_the_stack_walks_nodes_in_order(which):
+  arrays = _tree_arrays(which)
+  left, count = arrays["bvh.node_left"], arrays["bvh.node_count"]
+  table = bvh_build.kernel_tables(arrays)["bvh.node_table"]
+  n = len(left)
+  rng = np.random.default_rng(n)
+  jumped = False
+  for p in (0.0, 0.3, 0.6, 0.85, 1.0) * 8:
+    # whether a node's box is hit depends on the hit leaves so far, as the
+    # closest hit's cap depends on the triangles it found
+    draws = rng.uniform(size=(n, 4))
+    hit = lambda node, k: bool(draws[node, k % 4] < p)
+    seen = _stack_walk(left, count, hit)
+    assert _skip_walk(table, hit) == seen
+    # a walk that passed over a missed subtree and went on
+    jumped |= seen != list(range(len(seen)))
+    if p == 1.0:
+      assert seen == list(range(n))
+  # ... wherever an inner node's subtree has a node after it
+  assert jumped or not ((table[:, 7] == 0) & (table[:, 6] < n)).any()

@@ -370,22 +370,47 @@ def test_fat_kernels_back_to_back_on_one_stream_give_equal_outputs(cuda, num_r):
 
 
 @pytest.mark.cuda
-def test_fat_kernels_replay_in_a_cuda_graph(cuda):
+@pytest.mark.parametrize("num_r", [1, 31, 32, 33, 255, 257, 4096])
+@pytest.mark.parametrize("form", ["fat", "node"])
+def test_bvh_kernels_on_batches_of_every_width_match_plain(cuda, form, num_r):
+  # a narrow batch runs a few lanes a warp; every third ray but the first
+  # is dead; each call is one launch of its kernel
+  rng = np.random.default_rng(900 + num_r)
+  bvh, rays = _bvh_case(rng, "bigscene", num_r, cuda)
+  if form == "node":
+    bvh = scene_types.without_fat_rows(bvh)
+  rays[3][1::3] = 0.0
+  closest, occluded = _BVH_KERNELS[form]
+  before = dict(bvh_trace.launches)
+  hit = getattr(bvh_trace, closest)(bvh, *rays)
+  assert bvh_trace.launches == {k: n + (k == closest) for k, n in before.items()}
+  occ = getattr(bvh_trace, occluded)(bvh, *rays)
+  assert bvh_trace.launches == {k: n + (k in (closest, occluded)) for k, n in before.items()}
+  ref = getattr(bvh_trace, f"{closest}_plain")(bvh, *rays)
+  for got, want in zip(hit, ref):
+    assert torch.equal(got, want)
+  assert torch.equal(occ, ref.found)
+
+
+def _bvh_graph_replay(form, cuda):
   rng = np.random.default_rng(13)
   bvh, rays = _bvh_case(rng, "bigscene", 70001, cuda)
-  want = bvh_trace.intersect_fat(bvh, *rays)
-  want_occ = bvh_trace.occluded_fat(bvh, *rays)
+  if form == "node":
+    bvh = scene_types.without_fat_rows(bvh)
+  closest, occluded = (getattr(bvh_trace, k) for k in _BVH_KERNELS[form])
+  want = closest(bvh, *rays)
+  want_occ = occluded(bvh, *rays)
   side = torch.cuda.Stream()
   side.wait_stream(torch.cuda.current_stream())
   with torch.cuda.stream(side):
     for _ in range(2):
-      bvh_trace.intersect_fat(bvh, *rays)
-      bvh_trace.occluded_fat(bvh, *rays)
+      closest(bvh, *rays)
+      occluded(bvh, *rays)
   torch.cuda.current_stream().wait_stream(side)
   graph = torch.cuda.CUDAGraph()
   with torch.cuda.graph(graph):
-    hit = bvh_trace.intersect_fat(bvh, *rays)
-    occ = bvh_trace.occluded_fat(bvh, *rays)
+    hit = closest(bvh, *rays)
+    occ = occluded(bvh, *rays)
   for _ in range(2):
     for x in (hit.t, hit.u, hit.v):
       x.fill_(-7.0)
@@ -396,6 +421,21 @@ def test_fat_kernels_replay_in_a_cuda_graph(cuda):
     for got, expected in zip(hit, want):
       assert torch.equal(got, expected)
     assert torch.equal(occ, want_occ)
+  ref = getattr(bvh_trace, f"{_BVH_KERNELS[form][0]}_plain")(bvh, *rays)
+  for got, expected in zip(want, ref):
+    assert torch.equal(got, expected)
+  assert torch.equal(want_occ, ref.found)
+
+
+@pytest.mark.cuda
+def test_fat_kernels_replay_in_a_cuda_graph(cuda):
+  _bvh_graph_replay("fat", cuda)
+
+
+@pytest.mark.cuda
+def test_node_kernels_replay_in_a_cuda_graph(cuda):
+  # the node entries reset their queue and live count on the stream too
+  _bvh_graph_replay("node", cuda)
 
 
 @pytest.mark.cuda

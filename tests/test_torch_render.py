@@ -151,16 +151,20 @@ def test_scene_bridge_gives_the_builders_scene(jax_scene, port_scene):
 
 def assert_bvh_holds_tree(bvh, arrays):
   """The device BVH's kernel tables hold the tree of the numpy scene arrays
-  (the JAX layout): boxes as float32 bits, int32 ids and counts, the
-  triangles in leaf order with their ids."""
+  (the JAX layout): boxes as float32 bits, int32 ids and counts (a node's
+  word 6: a leaf's first triangle row, an inner node's skip, as the JAX
+  tree's `node_skip` gives it), the triangles in leaf order with their
+  ids."""
   def f32(x):
     return x.contiguous().view(torch.float32).numpy()
 
   nodes = bvh.node_table
+  count = arrays["bvh.node_count"]
   np.testing.assert_array_equal(f32(nodes[:, 0:3]), arrays["bvh.node_min"])
   np.testing.assert_array_equal(f32(nodes[:, 3:6]), arrays["bvh.node_max"])
-  np.testing.assert_array_equal(nodes[:, 6].numpy(), arrays["bvh.node_left"])
-  np.testing.assert_array_equal(nodes[:, 7].numpy(), arrays["bvh.node_count"])
+  np.testing.assert_array_equal(
+      nodes[:, 6].numpy(), np.where(count > 0, arrays["bvh.node_left"], arrays["bvh.node_skip"]))
+  np.testing.assert_array_equal(nodes[:, 7].numpy(), count)
   fat = arrays.get("bvh.fat_rows")
   assert (bvh.fat_table is None) == (fat is None)
   if fat is not None:
