@@ -81,13 +81,30 @@ Phases, one line each with its elapsed seconds:
      image (exact ties may go to other triangles), profiled, and its
      bounce-2 rays captured, with K7 and K8 held against the plain walk and
      timed on them; the `kernels` line's K7/K8 launches are this render's;
-  17. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  17. main path, volumetric: the JAX package's bench config 4 (the diffuse
+     Cornell box in a heterogeneous 24^3 cloud written as a `.vol` file and
+     loaded back; `scene/volumetric.volumetric`) at 384x384, max path
+     length 10, a 2^18-lane pool and 8 iterations through the non-deferred
+     bounce: free-path sampling, NEE through `_trace_transmittance`, every
+     trace through K1 (no shadow ray reaches K2); gated like the others,
+     profiled (bounces, kernels and host reads a bounce, device busy share),
+     and the rays of the first `_trace_transmittance` segment of bounce 2
+     captured, with K1 held against its plain version and timed on them;
+  18. main path, subsurface: `tests/test_media.py::test_sss_render`'s
+     configuration (the gray material random-walk SSS;
+     `scene/volumetric.subsurface_cornell`) at 384x384, max path length 6,
+     a 2^18-lane pool and 4 iterations, gated, timed and profiled, with K1's
+     launches a bounce inside the walk;
+  19. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
      against the same render on the CPU; the 32x32 bigscene render (8 spp)
      on the card against the CPU, through K5/K6, and again with the tree's
-     fat rows removed, through K7/K8;
-  18. micro: the micro-benchmark entry
+     fat rows removed, through K7/K8; the 32x32 volumetric (4 spp),
+     random-walk and Christensen-Burley SSS (2 spp each) and fog with a
+     Boundary cube and a radiance clamp (4 spp) renders on the card against
+     the CPU;
+  20. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
      against bigscene; `trace_brute`: K3/K4 against K9a/K9b on 2^18 random
@@ -107,9 +124,11 @@ and prints no result. The script imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -120,7 +139,7 @@ from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film as film_mod
-from etx_tracer_tpu_torch.scene import bigscene, caustics, cornell, materials
+from etx_tracer_tpu_torch.scene import bigscene, caustics, cornell, materials, volumetric
 from etx_tracer_tpu_torch.scene import types as scene_types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -185,6 +204,30 @@ BIGSCENE_ITERATIONS = 8
 BIGSCENE_MEAN = (0.0570, 0.0697)
 # the materials main path's bounce whose rays K3/K4 are held and timed on
 CAPTURE_BOUNCE = 2
+# volumetric main path (bench config 4): its film and one `_pt_mrays` call
+# of the JAX package's bench
+VOLUMETRIC_SIZE = (384, 384)
+VOLUMETRIC_ITERATIONS = 8
+# the volumetric image mean at 384x384, 8 spp must lie in this range: the
+# port's CPU render of the scene at 64x64, 8 spp has mean 0.020675
+# (`python -m tests.media_reference_means`; the JAX package's 0.020675), and
+# this range is that mean +-10%
+VOLUMETRIC_MEAN = (0.01861, 0.02274)
+# subsurface main path: test_sss_render's configuration at the volumetric
+# film, 4 iterations
+SUBSURFACE_ITERATIONS = 4
+# ... and its mean: the port's CPU render at 64x64, 4 spp, 0.065555 (the same
+# script; the JAX package's 0.065557), +-10%
+SUBSURFACE_MEAN = (0.05900, 0.07211)
+# the 32x32 card-vs-CPU renders of the media slice: (label, builder, spp)
+MEDIA_E2E = (
+    ("volumetric", lambda: volumetric.volumetric((32, 32)), 4),
+    ("random-walk SSS", lambda: volumetric.subsurface_cornell(
+        (32, 32), scene_types.SubsurfaceClass.RandomWalk), 2),
+    ("Christensen-Burley SSS", lambda: volumetric.subsurface_cornell(
+        (32, 32), scene_types.SubsurfaceClass.ChristensenBurley), 2),
+    ("fog + Boundary cube + radiance clamp", lambda: volumetric.fog_boundary_cornell((32, 32)),
+     4))
 T0 = time.perf_counter()
 
 
@@ -717,16 +760,24 @@ def render_main(label, scene, config, iterations, dev):
   return img, counts, seconds, rays
 
 
+def gate_mean(label, img, bounds):
+  """Finite (render_main checked), >= 0, mean inside `bounds`, red left
+  third and green right third. Returns the mean."""
+  check(bool((img >= 0.0).all()), f"{label}: image has negative values")
+  mean = float(img.mean())
+  lo, hi = bounds
+  check(lo <= mean <= hi, f"{label}: image mean {mean} outside [{lo}, {hi}]")
+  left, right = check_thirds(img, label)
+  say("main", f"{label} image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
+  return mean
+
+
 def main_path_cornell(scene, config, dev):
   img, counts, seconds, rays = render_main(
       f"cornell 512x512 mpl 1023 pool 2^18 {ITERATIONS} spp", scene, config, ITERATIONS, dev)
-  check(bool((img >= 0.0).all()), "cornell: image has negative values")
-  mean = float(img.mean())
-  check(0.05 <= mean <= 0.15, f"cornell: image mean {mean} outside [0.05, 0.15]")
-  left, right = check_thirds(img, "cornell")
+  gate_mean("cornell", img, (0.05, 0.15))
   for key in ("intersect", "occluded"):
     check(counts[key] > 0, f"the Cornell main path never launched the {key} kernel")
-  say("main", f"cornell image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
   return counts
 
 
@@ -763,11 +814,7 @@ def main_path_bigscene(scene, config, dev):
   img, counts, seconds, rays = render_main(
       f"{label} 512x512 mpl 8 pool 2^18 {BIGSCENE_ITERATIONS} spp", scene, config,
       BIGSCENE_ITERATIONS, dev)
-  check(bool((img >= 0.0).all()), f"{label}: image has negative values")
-  mean = float(img.mean())
-  lo, hi = BIGSCENE_MEAN
-  check(lo <= mean <= hi, f"{label}: image mean {mean} outside [{lo}, {hi}]")
-  left, right = check_thirds(img, label)
+  gate_mean(label, img, BIGSCENE_MEAN)
   used, unused = (("intersect_bvh_fat", "occluded_bvh_fat"), ("intersect_bvh", "occluded_bvh"))
   if not fat:
     used, unused = unused, used
@@ -775,7 +822,6 @@ def main_path_bigscene(scene, config, dev):
     check(counts[key] > 0, f"the {label} main path never launched the {key} kernel")
   for key in unused:
     check(counts[key] == 0, f"the {label} main path launched the {key} kernel")
-  say("main", f"{label} image mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
   return counts, img
 
 
@@ -834,15 +880,39 @@ def captured_phase(label, names, scene, config, dev):
                                                    rays[0].shape[0]))
 
 
+class Counting:
+  """Counts, while it is entered, the calls of `path_tracing.pt_step`
+  (bounces) and of `torch.Tensor.item` (host reads)."""
+
+  def __enter__(self):
+    self.bounces = self.host_reads = 0
+    self._step, self._item = path_tracing.pt_step, torch.Tensor.item
+
+    def step(*args, **kwargs):
+      self.bounces += 1
+      return self._step(*args, **kwargs)
+
+    def item(t):
+      self.host_reads += 1
+      return self._item(t)
+
+    path_tracing.pt_step, torch.Tensor.item = step, item
+    return self
+
+  def __exit__(self, *exc):
+    path_tracing.pt_step, torch.Tensor.item = self._step, self._item
+
+
 def profile_step_mix(label, scene, config, dev):
   """Where a main-path bounce spends its time: one iteration under the
-  profiler. Prints kernels launched per bounce, the device's busy share of
-  the wall time and the kernels that take most of the device time."""
+  profiler. Prints bounces, kernels launched and host reads per bounce, the
+  device's busy share of the wall time and the kernels that take most of
+  the device time."""
   from torch.profiler import ProfilerActivity, profile
-  reset_counts()
-  path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
-  torch.cuda.synchronize()
-  steps = sum(read_counts()[k] for k in CLOSEST)
+  with Counting() as counted:
+    path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
+    torch.cuda.synchronize()
+  steps = counted.bounces
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
@@ -859,7 +929,8 @@ def profile_step_mix(label, scene, config, dev):
   check(busy_us > 0.0, "the profiler recorded no device time")
   say("profile", f"{label} 1 spp: {steps} bounces, {wall_ms:.1f} ms wall, device busy "
       f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.3f} of wall), "
-      f"{launched / max(steps, 1):.0f} kernels per bounce")
+      f"{launched / max(steps, 1):.0f} kernels and "
+      f"{counted.host_reads / max(steps, 1):.1f} host reads per bounce")
   for t, count, key in by_name[:6]:
     say("profile", f"  {t / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
   names = {entry[2] for entry in KERNELS.values()}
@@ -867,6 +938,119 @@ def profile_step_mix(label, scene, config, dev):
     if any(n in key for n in names):
       say("profile", f"  trace kernel {key[:60]}: {count} launches, "
           f"{t / 1e3 / count:.4f} ms per launch")
+
+
+def volumetric_scene(film, dev):
+  return volumetric.volumetric(film).build(device=dev)
+
+
+def subsurface_scene(film, dev):
+  return volumetric.subsurface_cornell(film, scene_types.SubsurfaceClass.RandomWalk).build(
+      device=dev)
+
+
+def main_path_volumetric(scene, config, dev):
+  """Bench config 4 through the non-deferred bounce: every trace, the
+  transmittance segments included, through K1; no shadow ray reaches K2."""
+  check(config.has_media and not config.has_subsurface and config.max_path_length == 10
+        and not path_tracing.uses_deferred_nee(config), f"volumetric config {config}")
+  img, counts, seconds, rays = render_main(
+      f"volumetric {VOLUMETRIC_SIZE[0]}x{VOLUMETRIC_SIZE[1]} mpl 10 pool 2^18 "
+      f"{VOLUMETRIC_ITERATIONS} spp", scene, config, VOLUMETRIC_ITERATIONS, dev)
+  gate_mean("volumetric", img, VOLUMETRIC_MEAN)
+  check(counts["intersect"] > 0, "the volumetric main path never launched the intersect kernel")
+  check(counts["occluded"] == 0, "the volumetric main path launched the occluded kernel")
+  return counts
+
+
+def main_path_subsurface(scene, config, dev):
+  """test_sss_render's configuration: the random walk's traces through K1,
+  the deferred shadow rays through K2. Prints K1's launches a bounce inside
+  the walk (`render/subsurface.gather`)."""
+  check(config.has_subsurface and not config.has_media
+        and path_tracing.uses_deferred_nee(config), f"subsurface config {config}")
+  per_bounce = []
+  gather = path_tracing.sss_mod.gather
+
+  def counted_gather(*args, **kwargs):
+    before = brute_trace.launches["intersect"]
+    out = gather(*args, **kwargs)
+    per_bounce.append(brute_trace.launches["intersect"] - before)
+    return out
+
+  path_tracing.sss_mod.gather = counted_gather
+  try:
+    img, counts, seconds, rays = render_main(
+        f"subsurface {VOLUMETRIC_SIZE[0]}x{VOLUMETRIC_SIZE[1]} mpl 6 pool 2^18 "
+        f"{SUBSURFACE_ITERATIONS} spp", scene, config, SUBSURFACE_ITERATIONS, dev)
+  finally:
+    path_tracing.sss_mod.gather = gather
+  gate_mean("subsurface", img, SUBSURFACE_MEAN)
+  for key in ("intersect", "occluded"):
+    check(counts[key] > 0, f"the subsurface main path never launched the {key} kernel")
+  walk = np.asarray(per_bounce, np.float64)
+  say("main", f"subsurface: K1 launches inside the walk per bounce mean {walk.mean():.2f}, "
+      f"max {int(walk.max())} over {walk.size} bounces ({int(walk.sum())} of "
+      f"{counts['intersect']} K1 launches)")
+  return counts
+
+
+def capture_segment(scene, config, dev, bounce: int):
+  """The rays of the first closest-hit trace that `_trace_transmittance`
+  makes at `bounce` of one main-path iteration, as the dispatch receives
+  them."""
+  from etx_tracer_tpu_torch.ops import trace as trace_ops
+  seen = {"bounce": -1, "inside": False, "rays": None}
+  step, walk, closest = (path_tracing.pt_step, path_tracing._trace_transmittance,
+                         trace_ops.trace_closest)
+
+  def counted_step(*args, **kwargs):
+    seen["bounce"] += 1
+    return step(*args, **kwargs)
+
+  def marked_walk(*args, **kwargs):
+    seen["inside"] = True
+    try:
+      return walk(*args, **kwargs)
+    finally:
+      seen["inside"] = False
+
+  def hook(sc, o, d, t_min, t_max, tri_mask=None):
+    if seen["inside"] and seen["bounce"] == bounce and seen["rays"] is None:
+      seen["rays"] = tuple(x.clone() for x in (o, d, t_min, t_max))
+    return closest(sc, o, d, t_min, t_max, tri_mask)
+
+  path_tracing.pt_step, path_tracing._trace_transmittance = counted_step, marked_walk
+  trace_ops.trace_closest = hook
+  try:
+    path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
+  finally:
+    path_tracing.pt_step, path_tracing._trace_transmittance = step, walk
+    trace_ops.trace_closest = closest
+  check(seen["rays"] is not None, f"no transmittance segment traced at bounce {bounce}")
+  return seen["rays"]
+
+
+def captured_segment_phase(scene, config, dev):
+  """K1 on the first transmittance segment of the volumetric path's bounce
+  2: held against its plain version, timed, with its live share and bound.
+  Returns the row for the `kernels` line's note."""
+  rays = capture_segment(scene, config, dev, CAPTURE_BOUNCE)
+  geometry = (list(scene[:3]), None)
+  e, frac = compare("intersect", geometry, rays, None)
+  run = kernel_call("intersect", geometry)
+  ms = kernel_ms(lambda: run(*rays), KERNELS["intersect"][2], 50)
+  plain = kernel_call("intersect", geometry, plain=True)
+  plain_ms = event_ms(lambda: plain(*rays), 1)
+  ops, nbytes, counted, _ = work("intersect", geometry, rays)
+  b_ms, b_by = bound_ms(ops, nbytes)
+  live = live_lanes("intersect", rays)
+  say("captured", f"intersect on the volumetric main path's bounce {CAPTURE_BOUNCE} "
+      f"transmittance segment ({rays[0].shape[0]} lanes, live share "
+      f"{float(live.float().mean().item()):.4f}, hit fraction {frac:.4f}): matches the plain "
+      f"version (max abs err {e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+      f"{b_ms:.4f} ms by {b_by} ({ops} FP32 operations from {counted}, {nbytes} bytes)")
+  return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def render_small(build, dev_name: str, iterations: int):
@@ -922,6 +1106,12 @@ def end_to_end():
     check(counts[key] > 0, f"the bigscene render without fat rows never launched the {key} kernel")
   check(counts["intersect_bvh_fat"] == 0 and counts["occluded_bvh_fat"] == 0,
         "the bigscene render without fat rows launched a fat-row kernel")
+  for label, make, spp in MEDIA_E2E:
+    reset_counts()
+    card_vs_cpu(f"{label} 32x32 {spp} spp", lambda d: make().build(device=d), spp)
+    counts = read_counts()
+    say("e2e", f"{label}: launches {counts}")
+    check(counts["intersect"] > 0, f"the {label} 32x32 render never launched the intersect kernel")
 
 
 def micro_phase(dev):
@@ -1021,6 +1211,8 @@ def main() -> int:
     return 2
   dev = torch.device("cuda")
   kind = torch.cuda.get_device_name(0)
+  # the volumetric scene's `.vol` cloud goes to a cache inside the checkout
+  os.environ["XDG_CACHE_HOME"] = str(Path(_build.BUILD_DIR) / "cache")
 
   smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True, timeout=60)
@@ -1105,6 +1297,13 @@ def main() -> int:
   same_image("main", "bigscene without fat rows vs with", img_node, img_big)
   profile_step_mix("bigscene 512x512 without fat rows", *nofat_512, dev)
   captured_phase("bigscene without fat rows", ("intersect_bvh", "occluded_bvh"), *nofat_512, dev)
+  volumetric_384 = volumetric_scene(VOLUMETRIC_SIZE, dev)
+  counts_vol = main_path_volumetric(*volumetric_384, dev)
+  profile_step_mix("volumetric 384x384", *volumetric_384, dev)
+  segment = captured_segment_phase(*volumetric_384, dev)
+  subsurface_384 = subsurface_scene(VOLUMETRIC_SIZE, dev)
+  counts_sss = main_path_subsurface(*subsurface_384, dev)
+  profile_step_mix("subsurface 384x384", *subsurface_384, dev)
   end_to_end()
   counts_micro = micro_phase(dev)
 
@@ -1125,6 +1324,10 @@ def main() -> int:
         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None})
+  # K1/K2 on the media slice's paths, beside the Cornell path's numbers
+  say("kernels", f"K1/K2 launches on the volumetric path {counts_vol['intersect']} / "
+      f"{counts_vol['occluded']}, on the subsurface path {counts_sss['intersect']} / "
+      f"{counts_sss['occluded']}; K1 on the volumetric bounce-2 transmittance segment: {segment}")
   print(card_line, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   # one card: the run uses cuda:0 and nothing else

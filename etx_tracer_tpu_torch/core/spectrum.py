@@ -277,3 +277,6 @@ class SpectralDistribution:
 
   def luminance(self) -> float:
     return float(self.integrate_to_xyz()[1])
+
+  def maximum_power(self) -> float:
+    return float(self.values.max())

@@ -3,22 +3,33 @@
 Counterpart of `etx_tracer_tpu/models/path_tracing.py`'s main path:
 `render` -> `render_samples_static` (a fixed lane pool with static
 lane -> pixel ownership, run as a cascade of ever narrower phases) ->
-`pt_step` with deferred next-event estimation (each step's shadow ray is
-traced in the NEXT step, beside the path rays). Every bounce makes two
-trace launches: the closest-hit kernel (K1) for path rays and the any-hit
-kernel (K2) for last step's shadow rays; each phase ends with one more K2
-launch that drains the pending shadow rays.
+`pt_step`. Scenes without media or a radiance clamp take `pt_step` with
+deferred next-event estimation (each step's shadow ray is traced in the
+NEXT step, beside the path rays): every bounce makes two trace launches,
+the closest-hit kernel for path rays and the any-hit kernel for last step's
+shadow rays, and each phase ends with one more any-hit launch that drains
+the pending shadow rays. Scenes with media or a clamp take the non-deferred
+form, as the JAX package does: a step traces its own shadow rays, through
+`_trace_transmittance` (up to 16 closest-hit traces a ray, Boundary
+interfaces switching the medium) with media, else through the any-hit
+kernel; there are no pending rays and no drain.
 
-The port renders the Diffuse, Conductor, Dielectric and Thinfilm classes
-(`config.material_classes`) lit by area emitters, in RGB or spectral mode
-(one sampled wavelength per lane; a bounce evaluates the spectrum bank at
-each lane's wavelength once), without media, textures or a radiance clamp.
-RNG streams key off (pixel, iteration) only, so the port reproduces the JAX
-package's sample streams draw for draw.
+The port renders the Diffuse, Conductor, Dielectric, Thinfilm and Boundary
+classes (`config.material_classes`) lit by area emitters, in RGB or
+spectral mode (one sampled wavelength per lane; a bounce evaluates the
+spectrum bank at each lane's wavelength once), with homogeneous and
+heterogeneous media (free-path sampling, NEE from medium points with HG
+phase MIS, `render/media.py`), subsurface scattering (random walk and
+Christensen-Burley, `render/subsurface.py`) and a radiance clamp on each
+sample, without textures. RNG streams key off (pixel, iteration) only, so
+the port reproduces the JAX package's sample streams draw for draw; the
+media and subsurface loops run over the whole wavefront for the JAX loops'
+trip counts, which every lane's stream depends on.
 
-PyTorch runs eagerly, so the JAX `while_loop`s are Python loops; their
-conditions are read on the host once per 4 steps, as the JAX loop body runs
-4 steps between two tests of its condition.
+PyTorch runs eagerly, so the JAX `while_loop`s are Python loops; the pool
+loop reads its condition on the host once per 4 steps, as the JAX loop body
+runs 4 steps between two tests of its condition, and the loops inside a
+bounce once per iteration.
 """
 
 from __future__ import annotations
@@ -35,11 +46,18 @@ from etx_tracer_tpu_torch.ops import trace as trace_ops
 from etx_tracer_tpu_torch.render import camera as camera_mod
 from etx_tracer_tpu_torch.render import emitters as emitters_mod
 from etx_tracer_tpu_torch.render import film as film_mod
+from etx_tracer_tpu_torch.render import media as media_mod
 from etx_tracer_tpu_torch.render import spectral as spx
+from etx_tracer_tpu_torch.render import subsurface as sss_mod
 from etx_tracer_tpu_torch.render.bsdf import dispatch as bsdf_dispatch
 from etx_tracer_tpu_torch.render.bsdf.lobes import ShadingData
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
+from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
+from etx_tracer_tpu_torch.scene.types import SubsurfaceClass
+
+# closest-hit traces a shadow segment may take through Boundary interfaces
+_MAX_SEGMENTS = 16
 
 
 class PTState(NamedTuple):
@@ -52,7 +70,7 @@ class PTState(NamedTuple):
   accumulated: torch.Tensor  # (R,C)
   view_normal: torch.Tensor  # (R,3)
   view_albedo: torch.Tensor  # (R,C)
-  medium: torch.Tensor       # (R,) int32, -1: vacuum
+  medium: torch.Tensor       # (R,) int32 medium the ray travels in, -1: vacuum
   path_length: torch.Tensor  # (R,) int32
   eta: torch.Tensor          # (R,)
   bsdf_pdf: torch.Tensor     # (R,)
@@ -63,6 +81,7 @@ class PTState(NamedTuple):
   sample_iter: torch.Tensor  # (R,) int64 sample iteration of this lane
   rays_traced: torch.Tensor  # () int64: path rays + shadow rays traced
   # deferred-NEE pending shadow ray, traced in the NEXT step; tmax < 0 = none
+  # (without deferred NEE these ride along unchanged)
   psh_o: torch.Tensor        # (R,3)
   psh_d: torch.Tensor        # (R,3)
   psh_tmax: torch.Tensor     # (R,)
@@ -104,7 +123,7 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) 
       ray_o=rays.o, ray_d=rays.d, t_min=rays.t_min, t_max=rays.t_max,
       throughput=torch.ones((r, c), device=dev), accumulated=zeros(r, c),
       view_normal=zeros(r, 3), view_albedo=zeros(r, c),
-      medium=torch.full((r,), -1, dtype=torch.int32, device=dev),
+      medium=scene.camera.medium_index.to(torch.int32).expand(r).contiguous(),
       path_length=torch.ones(r, dtype=torch.int32, device=dev),
       eta=torch.ones(r, device=dev), bsdf_pdf=zeros(r),
       mis_flag=torch.ones(r, dtype=torch.bool, device=dev),
@@ -154,14 +173,78 @@ def _random_continue(path_length, rr_start: int, eta, rnd, throughput):
   return cont & nonzero, thr
 
 
+def uses_deferred_nee(config) -> bool:
+  """Whether the bounce defers its shadow ray to the next step (no media,
+  whose transmittance needs its own walk, and no radiance clamp, which
+  caps each sample's total)."""
+  return not config.has_media and not config.has_radiance_clamp
+
+
+def _trace_transmittance(scene, rng_state, medium, from_pos, to_pos, wl, spectral: bool):
+  """Transmittance (R,C) of each shadow segment from_pos -> to_pos starting
+  in `medium`, and the RNG state. Up to 16 closest-hit traces walk the
+  segment over the whole wavefront while any lane is active: a Boundary
+  hit switches the medium by the side it is crossed from and the walk goes
+  on, any other hit blocks the segment; each piece multiplies in its
+  medium's transmittance (`media.transmittance`, which draws from every
+  lane's RNG on each of its steps)."""
+  r = from_pos.shape[0]
+  dev = from_pos.device
+  direction = em.normalize(to_pos - from_pos)
+  total_dist = em.length(to_pos - from_pos)
+  cur = from_pos
+  traveled = torch.zeros(r, device=dev)
+  med = medium
+  tr = torch.ones((r, spx.channels(spectral)), device=dev)
+  active = torch.ones(r, dtype=torch.bool, device=dev)
+  t_eps = torch.full((r,), em.kRayEpsilon, device=dev)
+  it = 0
+  while it < _MAX_SEGMENTS and bool(active.any().item()):
+    remaining = torch.clamp(total_dist - traveled, min=0.0)
+    seg_max = torch.where(active, remaining * (1.0 - 1e-3), 0.0)
+    hit = trace_ops.trace_closest(scene, cur, direction, t_eps, seg_max)
+    seg_len = torch.where(hit.found, hit.t, remaining)
+
+    mv = media_mod.gather_medium(scene, med, wl, spectral)
+    seg_tr, rng_state = media_mod.transmittance(
+        scene, mv, wl, rng_state, cur, direction, torch.where(active, seg_len, 0.0), spectral)
+    tr = torch.where(active[..., None], tr * seg_tr, tr)
+
+    trows = packed.TriRows(scene.tri_table[torch.clamp(hit.tri, min=0)])
+    mat = packed.MaterialRows(scene.mat_table[trows.mat])
+    is_boundary = hit.found & (mat.cls == MC.Boundary)
+    blocked = hit.found & ~is_boundary
+    tr = torch.where((active & blocked)[..., None], 0.0, tr)
+
+    # a boundary: switch the medium by the side it is crossed from, go on
+    cross = active & is_boundary
+    cos_n = em.dot(trows.geo_n, direction)
+    med = torch.where(cross, torch.where(cos_n < 0.0, mat.int_medium, mat.ext_medium), med)
+    side = torch.where(cos_n >= 0, 1.0, -1.0)[..., None]
+    cur = torch.where(cross[..., None],
+                      em.offset_ray(cur + direction * hit.t[..., None], trows.geo_n * side), cur)
+    traveled = torch.where(cross, traveled + hit.t, traveled)
+    active = cross
+    it += 1
+  return tr, rng_state
+
+
 def pt_step(scene, config, state: PTState) -> PTState:
-  """One wavefront bounce with deferred NEE: trace this step's path rays and
-  the previous step's shadow rays, shade, emit this step's shadow ray as the
-  new pending one and report the resolved contribution via res_rgb/res_valid."""
+  """One wavefront bounce. Without media or a radiance clamp
+  (`uses_deferred_nee`) the NEE is deferred: this step's path rays and the
+  previous step's shadow rays are traced, the resolved contribution is
+  reported via res_rgb/res_valid and this step's shadow ray becomes the new
+  pending one. Otherwise each step traces its own shadow rays (through
+  `_trace_transmittance` with media, else the any-hit trace) and adds their
+  contribution to `accumulated`; with media a lane may scatter in its
+  medium before it reaches a surface (NEE from the medium point, then a
+  phase-sampled continuation), Boundary hits pass straight through into the
+  medium on the far side, and subsurface materials walk to an exit first."""
   r = state.ray_o.shape[0]
   dev = state.ray_o.device
   spectral = config.spectral
   classes = config.material_classes
+  deferred = uses_deferred_nee(config)
   if spectral:
     # every SPD at each lane's wavelength, once per bounce: the queries of
     # this bounce at state.wl read it instead of the bank
@@ -170,22 +253,71 @@ def pt_step(scene, config, state: PTState) -> PTState:
   # dead lanes trace a degenerate interval
   t_max = torch.where(state.alive, state.t_max, 0.0)
   hit = trace_ops.trace_closest(scene, state.ray_o, state.ray_d, state.t_min, t_max)
-  sh_found = trace_ops.trace_occluded(
-      scene, state.psh_o, state.psh_d, torch.full((r,), em.kRayEpsilon, device=dev),
-      torch.clamp(state.psh_tmax, min=0.0))
-  res_valid = (state.psh_tmax > 0.0) & ~sh_found
-  res_rgb = torch.where(res_valid[..., None], state.psh_rgb, 0.0)
+  if deferred:
+    sh_found = trace_ops.trace_occluded(
+        scene, state.psh_o, state.psh_d, torch.full((r,), em.kRayEpsilon, device=dev),
+        torch.clamp(state.psh_tmax, min=0.0))
+    res_valid = (state.psh_tmax > 0.0) & ~sh_found
+    res_rgb = torch.where(res_valid[..., None], state.psh_rgb, 0.0)
+  else:
+    res_valid = torch.zeros(r, dtype=torch.bool, device=dev)
+    res_rgb = torch.zeros((r, 3), device=dev)
   found = hit.found & state.alive
 
   rng_state = state.rng_state
+  accumulated = state.accumulated
   throughput = state.throughput
+
+  # ------------------------------------------------------ medium free path
+  if config.has_media:
+    mv = media_mod.gather_medium(scene, state.medium, state.wl, spectral)
+    seg_t = torch.where(found, hit.t, 2.0 * scene.bsphere_radius * 100.0)
+    seg_t = torch.where(state.alive & mv.valid, seg_t, 0.0)
+    msample, rng_state = media_mod.sample_medium(
+        scene, mv, state.wl, throughput, rng_state, state.ray_o, state.ray_d,
+        torch.clamp(seg_t, min=em.kRayEpsilon), spectral)
+    in_medium = state.alive & mv.valid & (seg_t > 0.0)
+    throughput = torch.where(in_medium[..., None], throughput * msample.weight, throughput)
+    medium_event = in_medium & msample.sampled
+
+    # NEE from the medium point, MIS against the phase function
+    rng_state, m_rnd_sel = rng.next_float(rng_state)
+    rng_state, m_rnd_em = rng.next_2d(rng_state)
+    m_em_idx, _ = emitters_mod.sample_emitter_index(scene, m_rnd_sel)
+    m_esmp = emitters_mod.sample_emitter(scene, m_em_idx, m_rnd_em, msample.pos, state.wl,
+                                         spectral)
+    m_tr, rng_state = _trace_transmittance(scene, rng_state, state.medium, msample.pos,
+                                           m_esmp.origin, state.wl, spectral)
+    phase = media_mod.phase_hg(state.ray_d, m_esmp.direction, mv.phase_g)
+    m_w = torch.where(m_esmp.is_delta, 1.0,
+                      em.power_heuristic(m_esmp.pdf_dir * m_esmp.pdf_sample, phase))
+    m_denom = m_esmp.pdf_dir * m_esmp.pdf_sample
+    m_ok = (medium_event & mv.explicit_connections & (m_denom > 0.0)
+            & (state.path_length + 1 <= config.max_path_length))
+    m_contrib = (m_esmp.value * m_tr
+                 * (phase * m_w / torch.clamp(m_denom, min=1e-20))[..., None])
+    accumulated = accumulated + torch.where(m_ok[..., None], throughput * m_contrib, 0.0)
+
+    # phase-function continuation
+    rng_state, m_rnd_phase = rng.next_2d(rng_state)
+    phase_dir = media_mod.sample_phase_hg(state.ray_d, mv.phase_g, m_rnd_phase)
+    phase_pdf = media_mod.phase_hg(state.ray_d, phase_dir, mv.phase_g)
+
+    # lanes with a medium event skip the surface this step
+    found = found & ~medium_event
 
   # ----------------------------------------------------------------- hit
   pos, nrm, tan, btn, uv, _, _, trows = _interpolate_hit(scene, hit)
-  mat = packed.MaterialRows(scene.mat_table[trows.mat])
+  mat_idx = trows.mat
+  mat = packed.MaterialRows(scene.mat_table[mat_idx])
   emitter_idx = torch.where(found, trows.emitter, -1)
   sd = ShadingData(w_i=state.ray_d, nrm=nrm, tan=tan, btn=btn, geo_n=trows.geo_n,
                    tex=uv, wl=state.wl, medium=state.medium, mat=mat)
+
+  # Boundary materials: pass straight through, swap the medium
+  has_boundary = MC.Boundary in classes
+  is_boundary = found & (mat.cls == MC.Boundary) if has_boundary else None
+  surface = found & ~is_boundary if has_boundary else found
 
   # --- direct emitter hit ---
   directly_visible = state.path_length == 1
@@ -195,8 +327,8 @@ def pt_step(scene, config, state: PTState) -> PTState:
   no_weight = directly_visible | ~state.mis_flag
   mis_w = torch.where(no_weight, 1.0,
                       em.power_heuristic(state.bsdf_pdf, e_discrete * e_pdf_dir))
-  direct_ok = found & (e_pdf_dir > 0.0)
-  accumulated = state.accumulated + torch.where(
+  direct_ok = surface & (e_pdf_dir > 0.0)
+  accumulated = accumulated + torch.where(
       direct_ok[..., None], throughput * e_value * mis_w[..., None], 0.0)
 
   # --- first-hit AOVs ---
@@ -209,34 +341,124 @@ def pt_step(scene, config, state: PTState) -> PTState:
   rng_state, rnd_bsdf = rng.next_n(rng_state, bsdf_dispatch.NUM_SAMPLE_RND)
   bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, spectral, classes)
 
-  # --- NEE: this step's shadow ray becomes the pending one ---
+  # --- subsurface: walk to an exit, continue and shade from there ---
+  if config.has_subsurface:
+    sss_path = (found & (mat.subsurface_cls != SubsurfaceClass.Disabled)
+                & bs.is_reflection & bs.is_diffuse)
+    gather, rng_state = sss_mod.gather(scene, sd, mat_idx, pos, rng_state, sss_path, spectral,
+                                       config.subsurface_classes)
+    sss_ok = sss_path & gather.found
+    ok3 = sss_ok[..., None]
+    out_nrm = gather.nrm
+    pos = torch.where(ok3, gather.pos, pos)
+    nrm = torch.where(ok3, out_nrm, nrm)
+    sd = sd._replace(nrm=torch.where(ok3, out_nrm, sd.nrm),
+                     tan=torch.where(ok3, gather.tan, sd.tan),
+                     btn=torch.where(ok3, gather.btn, sd.btn),
+                     geo_n=torch.where(ok3, gather.geo_n, sd.geo_n),
+                     tex=torch.where(ok3, gather.uv, sd.tex))
+    # the continuation: the cosine lobe at the exit
+    rng_state, sss_rnd = rng.next_2d(rng_state)
+    sss_dir = em.sample_cosine_distribution_n(sss_rnd, out_nrm, 1.0)
+    sss_pdf = torch.abs(em.dot(sss_dir, out_nrm)) * em.kInvPi
+    bs = bs._replace(w_o=torch.where(ok3, sss_dir, bs.w_o),
+                     weight=torch.where(ok3, gather.weight, bs.weight),
+                     pdf=torch.where(sss_ok, sss_pdf, bs.pdf),
+                     is_delta=torch.where(sss_ok, False, bs.is_delta))
+    # lanes that took the subsurface path but found no exit die
+    found = found & ~(sss_path & ~gather.found)
+    surface = found & ~is_boundary if has_boundary else found
+
+  # --- NEE ---
   rng_state, rnd_sel = rng.next_float(rng_state)
   rng_state, rnd_em = rng.next_2d(rng_state)
-  can_nee = found & (state.path_length + 1 <= config.max_path_length)
+  can_nee = surface & (state.path_length + 1 <= config.max_path_length)
   em_idx, _ = emitters_mod.sample_emitter_index(scene, rnd_sel)
   esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos, state.wl, spectral)
   bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, spectral, classes)
+  if config.has_subsurface:
+    # a subsurface exit shades as white diffuse, times the gather's weight
+    white = em.kInvPi * torch.clamp(em.dot(sd.nrm, esmp.direction), min=0.0)
+    bsdf_val = torch.where(sss_ok[..., None], white[..., None] * gather.weight, bsdf_val)
+    bsdf_pdf_at = torch.where(sss_ok, white, bsdf_pdf_at)
   sh_o = _shading_pos(sd.geo_n, pos, esmp.direction)
   w_mis = torch.where(esmp.is_delta, 1.0,
                       em.power_heuristic(esmp.pdf_dir * esmp.pdf_sample, bsdf_pdf_at))
   denom = esmp.pdf_dir * esmp.pdf_sample
-  dist = em.length(esmp.origin - sh_o)
-  contrib = bsdf_val * esmp.value * (w_mis / torch.clamp(denom, min=1e-20))[..., None]
-  nee_ok = can_nee & (denom > 0.0) & (bsdf_pdf_at > 0.0)
-  pend_rgb = spx.to_film_rgb(throughput * contrib, state.wl, spectral)
-  psh_tmax = torch.where(nee_ok, torch.clamp(dist * (1.0 - 1e-3), min=0.0), -1.0)
-  psh_rgb = torch.where(nee_ok[..., None], pend_rgb, 0.0)
+  if deferred:
+    # this step's shadow ray becomes the pending one
+    dist = em.length(esmp.origin - sh_o)
+    contrib = bsdf_val * esmp.value * (w_mis / torch.clamp(denom, min=1e-20))[..., None]
+    nee_ok = can_nee & (denom > 0.0) & (bsdf_pdf_at > 0.0)
+    pend_rgb = spx.to_film_rgb(throughput * contrib, state.wl, spectral)
+    psh_o, psh_d = sh_o, esmp.direction
+    psh_tmax = torch.where(nee_ok, torch.clamp(dist * (1.0 - 1e-3), min=0.0), -1.0)
+    psh_rgb = torch.where(nee_ok[..., None], pend_rgb, 0.0)
+  else:
+    value = bsdf_val * esmp.value
+    if config.has_media:
+      # transmittance through Boundary interfaces and media
+      tr_nee, rng_state = _trace_transmittance(scene, rng_state, state.medium, sh_o,
+                                               esmp.origin, state.wl, spectral)
+      vis_ok = torch.amax(tr_nee, dim=-1) > 0.0
+      value = value * tr_nee
+    else:
+      dist = em.length(esmp.origin - sh_o)
+      vis_ok = ~trace_ops.trace_occluded(
+          scene, sh_o, esmp.direction, torch.full((r,), em.kRayEpsilon, device=dev),
+          torch.clamp(dist * (1.0 - 1e-3), min=0.0))
+    contrib = value * (w_mis / torch.clamp(denom, min=1e-20))[..., None]
+    nee_ok = can_nee & (denom > 0.0) & vis_ok & (bsdf_pdf_at > 0.0)
+    accumulated = accumulated + torch.where(nee_ok[..., None], throughput * contrib, 0.0)
+    psh_o, psh_d, psh_rgb = state.psh_o, state.psh_d, state.psh_rgb
+    psh_tmax = torch.full((r,), -1.0, device=dev)
 
   # --- continuation ---
   new_d = bs.w_o
-  new_o = _shading_pos(sd.geo_n, pos, new_d)
   new_throughput = throughput * bs.weight
+  new_medium = bs.medium
+  new_bsdf_pdf = bs.pdf
+  new_mis = ~bs.is_delta
   new_eta = state.eta * bs.eta
   new_len = state.path_length + 1
+  continue_ok = found
+  sample_ok = bs.pdf > 0.0
+  if has_boundary:
+    # straight through, into the medium on the far side
+    ent = em.dot(nrm, state.ray_d) < 0.0
+    crossed = torch.where(ent, mat.int_medium, mat.ext_medium)
+    b3 = is_boundary[..., None]
+    new_d = torch.where(b3, state.ray_d, new_d)
+    new_throughput = torch.where(b3, throughput, new_throughput)
+    new_medium = torch.where(is_boundary, crossed, new_medium)
+    new_bsdf_pdf = torch.where(is_boundary, state.bsdf_pdf, new_bsdf_pdf)
+    new_mis = torch.where(is_boundary, state.mis_flag, new_mis)
+    new_eta = torch.where(is_boundary, state.eta, new_eta)
+    new_len = torch.where(is_boundary, state.path_length, new_len)
+    sample_ok = is_boundary | sample_ok
+  new_o = _shading_pos(sd.geo_n, pos, new_d)
+  if config.has_media:
+    # medium-scatter lanes go on along the sampled phase direction
+    me = medium_event
+    new_d = torch.where(me[..., None], phase_dir, new_d)
+    new_o = torch.where(me[..., None], msample.pos, new_o)
+    new_medium = torch.where(me, state.medium, new_medium)
+    new_bsdf_pdf = torch.where(me, phase_pdf, new_bsdf_pdf)
+    # no NEE competitor where the medium forbids explicit connections: the
+    # next direct emitter hit then carries full weight
+    new_mis = torch.where(me, mv.explicit_connections, new_mis)
+    new_eta = torch.where(me, state.eta, new_eta)
+    new_len = torch.where(me, state.path_length + 1, new_len)
+    continue_ok = continue_ok | me
+    sample_ok = sample_ok | me
+
+  # Russian roulette (not for a boundary pass-through)
   rng_state, rr_rnd = rng.next_float(rng_state)
   cont, new_throughput = _random_continue(new_len, config.rr_start, new_eta, rr_rnd,
                                           new_throughput)
-  alive = found & cont & (bs.pdf > 0.0) & (new_len <= config.max_path_length)
+  if has_boundary:
+    cont = cont | is_boundary
+  alive = continue_ok & cont & sample_ok & (new_len <= config.max_path_length)
   rays_traced = state.rays_traced + state.alive.sum() + nee_ok.sum()
 
   return PTState(
@@ -244,12 +466,25 @@ def pt_step(scene, config, state: PTState) -> PTState:
       t_min=torch.full((r,), em.kRayEpsilon, device=dev),
       t_max=torch.full((r,), em.kMaxFloat, device=dev),
       throughput=new_throughput, accumulated=accumulated,
-      view_normal=view_normal, view_albedo=view_albedo, medium=bs.medium,
-      path_length=new_len, eta=new_eta, bsdf_pdf=bs.pdf, mis_flag=~bs.is_delta,
+      view_normal=view_normal, view_albedo=view_albedo, medium=new_medium,
+      path_length=new_len, eta=new_eta, bsdf_pdf=new_bsdf_pdf, mis_flag=new_mis,
       rng_state=rng_state, wl=state.wl, alive=alive, sample_iter=state.sample_iter,
       rays_traced=rays_traced,
-      psh_o=sh_o, psh_d=esmp.direction, psh_tmax=psh_tmax, psh_rgb=psh_rgb,
+      psh_o=psh_o, psh_d=psh_d, psh_tmax=psh_tmax, psh_rgb=psh_rgb,
       res_rgb=res_rgb, res_valid=res_valid)
+
+
+def _lane_color(scene, config, state: PTState) -> torch.Tensor:
+  """A lane's radiance as film RGB; with a radiance clamp, a sample past
+  its first bounce whose luminance exceeds the clamp is scaled down to it."""
+  color = spx.to_film_rgb(state.accumulated, state.wl, config.spectral)
+  if not config.has_radiance_clamp:
+    return color
+  lum = em.luminance(color)
+  clamp = scene.radiance_clamp
+  scale = torch.where((clamp > 0.0) & (lum > clamp) & (state.path_length > 1),
+                      clamp / torch.clamp(lum, min=1e-9), 1.0)
+  return color * scale[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +570,8 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
   pool runs as a cascade of phases of width p, p/4, p/16, ... (at least
   4096 lanes, at most four phases): when the alive count drops to the next
   width the survivors are compacted. `rays` is the number of path and shadow
-  rays traced, as a 0-d int64 tensor.
+  rays traced (not the transmittance segments or the subsurface walks'
+  traces, as in the JAX package), as a 0-d int64 tensor.
   """
   device = resolve_device(device)
   scene = st.to_device(scene, device)
@@ -356,6 +592,7 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
   per_lane = s_slots * n_lane
   slot_ids = torch.arange(s_slots, device=device)[None, :]
   end = 2 ** 30
+  deferred = uses_deferred_nee(config)
 
   def phase(state, counter, lanes, pend_meta, film_rows, threshold: int):
     """Run the pool at width lanes.shape[0] until alive <= threshold (or,
@@ -372,18 +609,19 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
       dmask = died[..., None].to(torch.float32)
       even = (died & ((new_state.sample_iter % 2) == 0))[..., None].to(torch.float32)
-      color = spx.to_film_rgb(new_state.accumulated, new_state.wl, config.spectral)
+      color = _lane_color(scene, config, new_state)
       alb = spx.to_film_rgb(new_state.view_albedo, new_state.wl, config.spectral)
       row = torch.cat([color * dmask, new_state.view_normal * dmask, alb * dmask,
                        color * even, dmask, even], dim=-1)
       slot = torch.clamp(counter // n_lane, 0, s_slots - 1)
       film_rows = _add_rows(film_rows, row, slot, slot_ids)
-      # resolved NEE from LAST step, credited to its origin slot and parity
-      film_rows = _add_rows(film_rows, *_nee_row(new_state.res_rgb, new_state.res_valid,
-                                                 pend_meta), slot_ids)
-      pend_meta = torch.stack(
-          [slot.to(torch.float32),
-           ((new_state.sample_iter % 2) == 0).to(torch.float32)], dim=-1)
+      if deferred:
+        # resolved NEE from LAST step, credited to its origin slot and parity
+        film_rows = _add_rows(film_rows, *_nee_row(new_state.res_rgb, new_state.res_valid,
+                                                   pend_meta), slot_ids)
+        pend_meta = torch.stack(
+            [slot.to(torch.float32),
+             ((new_state.sample_iter % 2) == 0).to(torch.float32)], dim=-1)
 
       counter = counter + died.to(counter.dtype)
       fresh = make_lane_payload(scene, config,
@@ -408,7 +646,9 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
     return state, counter, film_rows, pend_meta
 
   def drain(state, pend_meta, film_rows):
-    """Resolve every lane's pending shadow ray."""
+    """Resolve every lane's pending shadow ray (none without deferred NEE)."""
+    if not deferred:
+      return state, film_rows
     width = state.alive.shape[0]
     occ = trace_ops.trace_occluded(
         scene, state.psh_o, state.psh_d, torch.full((width,), em.kRayEpsilon, device=device),

@@ -8,8 +8,8 @@ wavefront and results are selected by class masks; lanes of no listed class
 keep the null result (delta, zero weight). The JAX package wraps each
 costly class in `lax.cond` to skip a bounce with no lane of it; the result
 is the same either way, and here every listed class simply runs. The port
-has the Diffuse, Conductor, Dielectric and Thinfilm classes; Thinfilm is a
-delta lobe that evaluates to zero.
+has the Diffuse, Conductor, Dielectric, Thinfilm and Boundary classes;
+Thinfilm and Boundary are delta lobes that evaluate to zero.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
 NUM_SAMPLE_RND = 7
 
 _SAMPLERS = {MC.Diffuse: lobes.diffuse_sample, MC.Conductor: lobes.conductor_sample,
-             MC.Dielectric: lobes.dielectric_sample, MC.Thinfilm: lobes.thinfilm_sample}
-# delta classes (Thinfilm) evaluate to zero and have no entry
+             MC.Dielectric: lobes.dielectric_sample, MC.Thinfilm: lobes.thinfilm_sample,
+             MC.Boundary: lobes.boundary_sample}
+# delta classes (Thinfilm, Boundary) evaluate to zero and have no entry
 _EVALUATORS = {MC.Diffuse: lobes.diffuse_evaluate, MC.Conductor: lobes.conductor_evaluate,
                MC.Dielectric: lobes.dielectric_evaluate}
 _PDFS = {MC.Diffuse: lobes.diffuse_pdf, MC.Conductor: lobes.conductor_pdf,

@@ -1,4 +1,4 @@
-"""Vectorized BSDF lobes: Diffuse, Conductor, Dielectric and Thinfilm.
+"""Vectorized BSDF lobes: Diffuse, Conductor, Dielectric, Thinfilm and Boundary.
 
 Counterpart of the same lobes of `etx_tracer_tpu/render/bsdf/lobes.py`, with
 the JAX package's default multiple-scattering backend (`MS_BACKEND = "lut"`:
@@ -148,6 +148,21 @@ def _up(like: torch.Tensor) -> torch.Tensor:
 
 def _crossing_medium(sd, ent):
   return torch.where(ent, sd.mat.int_medium, sd.mat.ext_medium)
+
+
+# ---------------------------------------------------------------------------
+# Boundary: a medium interface
+# ---------------------------------------------------------------------------
+
+
+def boundary_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  """Pass straight through with unit weight into the medium on the far side
+  (a delta lobe; it evaluates to zero)."""
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(sd.w_i, torch.ones((r, spx.channels(spectral)), device=dev),
+                     torch.ones(r, device=dev), torch.ones(r, device=dev),
+                     *_flags(r, dev, True, False, False), _crossing_medium(sd, entering(sd)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,26 @@
 """Host-side scene staging and freezing into the device scene.
 
 Counterpart of `etx_tracer_tpu/scene/builder.py` for what the port renders:
-Diffuse, Conductor, Dielectric and Thinfilm materials, RGB or spectral
-rendering, triangle meshes (with per-vertex normals when given), area
-emitters and a pinhole camera. Staging and commit-time work (vertex
-normals, tangent frames, per-triangle area-emitter instancing, the
-power-based emitter distribution, the camera, the spectrum bank) run in
+Diffuse, Conductor, Dielectric, Thinfilm and Boundary materials, subsurface
+scattering (random walk, Christensen-Burley), homogeneous and heterogeneous
+media, a radiance clamp, RGB or spectral rendering, triangle meshes (with
+per-vertex normals when given), area emitters and a pinhole camera (in a
+medium or not). Staging and commit-time work (vertex normals, tangent
+frames, per-triangle area-emitter instancing, the power-based emitter
+distribution, the camera, the spectrum bank, the medium table) run in
 numpy exactly as in the JAX package, so both packages freeze bit-identical
 tables, and the numpy BVH builder (`ops/bvh_build.py`, the JAX package's
 numpy builder) builds every scene's tree, as the JAX builder does.
 `build(device)` adds the BVH kernels' tables and moves them onto the
-device. The other material classes, media, textures and distant emitters
-raise NotImplementedError naming the slice that brings them.
+device. The other material classes, diffuse variations, alpha, textures and
+distant emitters raise NotImplementedError naming the slice that brings
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -34,7 +38,7 @@ kInvalid = -1
 class MaterialDesc:
   """Host material description with the reference defaults. Every field is
   packed into mat_table; the port renders the classes of `RENDERED_CLASSES`
-  without images, subsurface, alpha, media or diffuse variations."""
+  without images, alpha or diffuse variations."""
   name: str = ""
   cls: int = st.MaterialClass.Diffuse
   reflectance_spec: int = kInvalid
@@ -71,20 +75,33 @@ class MaterialDesc:
   thinfilm_max: float = 0.0
 
 
+@dataclasses.dataclass
+class MediumDesc:
+  """Host medium description (the JAX package's defaults)."""
+  name: str = ""
+  cls: int = 1  # 1 homogeneous, 2 heterogeneous
+  absorption_spec: int = kInvalid
+  scattering_spec: int = kInvalid
+  phase_g: float = 0.0
+  grid: Optional[np.ndarray] = None  # (gz, gy, gx) densities
+  bounds_min: tuple = (0.0, 0.0, 0.0)
+  bounds_max: tuple = (1.0, 1.0, 1.0)
+  explicit_connections: bool = True
+
+
 RENDERED_CLASSES = (st.MaterialClass.Diffuse, st.MaterialClass.Conductor,
-                    st.MaterialClass.Dielectric, st.MaterialClass.Thinfilm)
+                    st.MaterialClass.Dielectric, st.MaterialClass.Thinfilm,
+                    st.MaterialClass.Boundary)
 
 
 def _check_material(m: MaterialDesc):
   if m.cls not in RENDERED_CLASSES:
     raise NotImplementedError(
-        f"material {m.name!r}: class {m.cls} (Translucent, Plastic, Mirror, Boundary, "
+        f"material {m.name!r}: class {m.cls} (Translucent, Plastic, Mirror, "
         "Velvet, Principled, Void) is the slice that brings the remaining BSDFs")
-  if (m.diffuse_variation != 0 or m.subsurface_cls != st.SubsurfaceClass.Disabled
-      or m.opacity < 1.0 or m.int_medium != kInvalid or m.ext_medium != kInvalid):
+  if m.diffuse_variation != 0 or m.opacity < 1.0:
     raise NotImplementedError(
-        f"material {m.name!r}: diffuse variations, subsurface, alpha and media "
-        "are later slices")
+        f"material {m.name!r}: diffuse variations and alpha are later slices")
   if any(i != kInvalid for i in (m.reflectance_img, m.scattering_img, m.emission_img,
                                  m.roughness_img, m.normal_img, m.thinfilm_img)):
     raise NotImplementedError(f"material {m.name!r}: textures are a later slice")
@@ -100,6 +117,8 @@ class SceneBuilder:
     self.materials: list[MaterialDesc] = []
     self.material_names: dict[str, int] = {}
     self.spectra: list[sp.SpectralDistribution] = []
+    self.mediums: list[MediumDesc] = []
+    self.medium_names: dict[str, int] = {}
     self.camera_origin = np.array([5.0, 5.0, 5.0], np.float32)
     self.camera_target = np.zeros(3, np.float32)
     self.camera_up = np.array([0.0, 1.0, 0.0], np.float32)
@@ -107,6 +126,7 @@ class SceneBuilder:
     self.film_size = (1280, 720)
     self.clip_near = 1.0 / 256.0
     self.clip_far = 1024.0
+    self.camera_medium = kInvalid
     self.samples = 256
     self.max_path_length = 65535
     self.rr_start = 6
@@ -139,6 +159,12 @@ class SceneBuilder:
     if desc.name:
       self.material_names[desc.name] = len(self.materials) - 1
     return len(self.materials) - 1
+
+  def add_medium(self, desc: MediumDesc) -> int:
+    self.mediums.append(desc)
+    if desc.name:
+      self.medium_names[desc.name] = len(self.mediums) - 1
+    return len(self.mediums) - 1
 
   def add_mesh(self, positions, indices, material: int, normals=None, uvs=None):
     self.positions.append(np.asarray(positions, np.float32).reshape(-1, 3))
@@ -184,9 +210,6 @@ class SceneBuilder:
   def arrays(self):
     """Commit the staged scene: (numpy arrays keyed by dotted DeviceScene
     field path, SceneConfig)."""
-    if self.radiance_clamp > 0.0:
-      raise NotImplementedError(
-          "a radiance clamp disables deferred NEE; it is a later slice")
     pos, nrm, uv, idx, tri_mat = self._merge_geometry()
     num_t = idx.shape[0]
 
@@ -308,18 +331,26 @@ class SceneBuilder:
         "spec_rgb": np.stack([s.integrated_rgb() for s in self.spectra]).astype(np.float32),
         "bsphere_center": center.astype(np.float32),
         "bsphere_radius": np.float32(radius),
+        "radiance_clamp": np.float32(self.radiance_clamp),
+        **_build_mediums(self.mediums, self.spectra),
     }
     tree = bvh_build.build_bvh(v0, e1, e2)
     arrays.update({f"bvh.{k}": v for k, v in tree.items() if v is not None})
     arrays.update(_build_camera(self.camera_origin, self.camera_target, self.camera_up,
                                 self.camera_fov, self.film_size, self.clip_near,
-                                self.clip_far))
+                                self.clip_far, self.camera_medium))
 
     config = st.SceneConfig(
         film_width=self.film_size[0], film_height=self.film_size[1],
         spectral=self.spectral, samples=self.samples,
         max_path_length=min(self.max_path_length, 4096), rr_start=self.rr_start,
-        material_classes=tuple(sorted({m.cls for m in mats})))
+        material_classes=tuple(sorted({m.cls for m in mats})),
+        has_media=len(self.mediums) > 0,
+        has_subsurface=any(m.subsurface_cls != st.SubsurfaceClass.Disabled for m in mats),
+        subsurface_classes=tuple(sorted(
+            {m.subsurface_cls for m in mats
+             if m.subsurface_cls != st.SubsurfaceClass.Disabled})) or (1,),
+        has_radiance_clamp=self.radiance_clamp > 0.0)
     return arrays, config
 
   def build(self, device=None):
@@ -380,7 +411,7 @@ def _orthonormal_np(n):
   return a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-20)
 
 
-def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far):
+def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far, medium):
   """Look-at pinhole camera, in numpy."""
   f = _normalize(np.asarray(target) - np.asarray(origin))
   s = _normalize(np.cross(f, np.asarray(up, np.float32)))
@@ -397,4 +428,43 @@ def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far):
       "camera.aspect": np.float32(w / h),
       "camera.clip_near": np.float32(clip_near),
       "camera.clip_far": np.float32(clip_far),
+      "camera.medium_index": np.int32(medium),
+  }
+
+
+def _build_mediums(descs: list, spectra) -> dict:
+  """The medium table, keyed "mediums.<field>": one row a medium (one row
+  of class 0 when there is none), every grid normalised to a maximum of 1
+  and padded with ones to the largest grid's shape."""
+  n = max(len(descs), 1)
+  if not descs:
+    descs = [MediumDesc(cls=0)]
+  gz = max(max((d.grid.shape[0] if d.grid is not None else 1) for d in descs), 1)
+  gy = max(max((d.grid.shape[1] if d.grid is not None else 1) for d in descs), 1)
+  gx = max(max((d.grid.shape[2] if d.grid is not None else 1) for d in descs), 1)
+  grids = np.ones((n, gz, gy, gx), np.float32)
+  for i, d in enumerate(descs):
+    if d.grid is not None:
+      g = d.grid.astype(np.float32)
+      m = g.max()
+      if m > 0:
+        g = g / m
+      grids[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+
+  def max_sigma(d: MediumDesc):
+    s = spectra[d.scattering_spec].maximum_power() if d.scattering_spec != kInvalid else 0.0
+    a = spectra[d.absorption_spec].maximum_power() if d.absorption_spec != kInvalid else 0.0
+    return s + a
+
+  return {
+      "mediums.cls": np.asarray([d.cls for d in descs], np.int32),
+      "mediums.absorption_spec": np.asarray([d.absorption_spec for d in descs], np.int32),
+      "mediums.scattering_spec": np.asarray([d.scattering_spec for d in descs], np.int32),
+      "mediums.phase_g": np.asarray([d.phase_g for d in descs], np.float32),
+      "mediums.max_sigma": np.asarray([max_sigma(d) for d in descs], np.float32),
+      "mediums.grid": grids,
+      "mediums.bounds_min": np.asarray([d.bounds_min for d in descs], np.float32),
+      "mediums.bounds_max": np.asarray([d.bounds_max for d in descs], np.float32),
+      "mediums.explicit_connections": np.asarray(
+          [1 if d.explicit_connections else 0 for d in descs], np.int32),
   }

@@ -5,16 +5,19 @@ geometry (room x in [-1,1], y in [0,2], z in [-1,1], open towards the camera
 at +z; two boxes; a ceiling light), camera and materials, staged with the
 same numpy code so both packages freeze identical tables: 36 triangles and
 two emitter triangles, in RGB or spectral mode, with a diffuse or (the
-default, as in the JAX package) a smooth conductor tall box.
+default, as in the JAX package) a smooth conductor tall box, in vacuum or
+filled with a homogeneous or heterogeneous fog.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from etx_tracer_tpu_torch.core import spectrum as sp
 from etx_tracer_tpu_torch.scene import types as st
-from etx_tracer_tpu_torch.scene.builder import MaterialDesc, SceneBuilder
+from etx_tracer_tpu_torch.scene.builder import MaterialDesc, MediumDesc, SceneBuilder
 
 
 def _quad(builder, p0, p1, p2, p3, material):
@@ -49,17 +52,19 @@ def _box(builder, center, size, rotation_y_deg, material):
 
 def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
                       diffuse_only=False, max_path_length=1023, with_light=True,
-                      fog_scattering=0.0, fog_grid=None, specular_boxes=False):
+                      fog_scattering=0.0, fog_g=0.0, fog_grid=None, specular_boxes=False):
   """Stage the Cornell box; returns a SceneBuilder (call .build(device)).
 
-  The specular boxes (a mirror) and fog raise NotImplementedError naming
-  the slice that brings them.
+  fog_scattering > 0 fills the room with a homogeneous medium of that
+  scattering (phase asymmetry fog_g) that the camera sits in; fog_grid, a
+  (gz, gy, gx) density grid, makes it heterogeneous over the room's box
+  instead (scattering 0.5 unless fog_scattering is set). Every material's
+  exterior medium is then the fog. The specular boxes (a mirror) raise
+  NotImplementedError naming the slice that brings them.
   """
   if specular_boxes:
     raise NotImplementedError(
         "specular_boxes: the mirror box is the slice that brings the remaining BSDFs")
-  if fog_scattering > 0.0 or fog_grid is not None:
-    raise NotImplementedError("fog: the media and subsurface slice")
   if not with_light:
     raise NotImplementedError(
         "with_light=False: a Cornell box without its light needs distant emitters, "
@@ -70,6 +75,15 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   b.spectral = spectral
   b.max_path_length = max_path_length
   b.rr_start = 6
+
+  fog = fog_scattering > 0.0 or fog_grid is not None
+  if fog:
+    scat = b.add_spectrum(sp.SpectralDistribution.rgb_reflectance(
+        np.full(3, fog_scattering if fog_scattering > 0.0 else 0.5, np.float32)))
+    b.camera_medium = b.add_medium(MediumDesc(
+        name="fog", cls=1 if fog_grid is None else 2,
+        scattering_spec=scat, phase_g=fog_g, grid=fog_grid,
+        bounds_min=(-1.0, 0.0, -1.0), bounds_max=(1.0, 2.0, 1.0)))
 
   # Kd values go through sRGB->linear like the reference MTL loader
   def lin(v):
@@ -110,6 +124,11 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   m_light = b.add_material(MaterialDesc(name="light", cls=st.MaterialClass.Diffuse,
                                         scattering_spec=black, emission_spec=emission,
                                         two_sided=True))
+
+  if fog:
+    # everything sits inside the fog
+    for i, m in enumerate(b.materials):
+      b.materials[i] = dataclasses.replace(m, ext_medium=b.camera_medium)
 
   _quad(b, (-1, 0, 1), (1, 0, 1), (1, 0, -1), (-1, 0, -1), m_white)      # floor (n=+y)
   _quad(b, (-1, 2, -1), (1, 2, -1), (1, 2, 1), (-1, 2, 1), m_white)      # ceiling (n=-y)

@@ -1,8 +1,8 @@
 """Device scene tables and the static render configuration.
 
 Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the path tracer
-of the Cornell, materials and bigscene scenes reads: NamedTuples of torch tensors that
-all lie on one device, and a frozen `SceneConfig`. Field names and layouts
+of the Cornell, materials, bigscene and volumetric scenes reads: NamedTuples
+of torch tensors that all lie on one device, and a frozen `SceneConfig`. Field names and layouts
 are the JAX package's, so a test can compare the two scenes field by field,
 but for the BVH, which holds the port's kernel tables.
 """
@@ -41,6 +41,8 @@ class EmitterClass:
 
 class SubsurfaceClass:
   Disabled = 0
+  RandomWalk = 1
+  ChristensenBurley = 2
 
 
 class Camera(NamedTuple):
@@ -53,6 +55,7 @@ class Camera(NamedTuple):
   aspect: torch.Tensor        # ()
   clip_near: torch.Tensor     # ()
   clip_far: torch.Tensor      # ()
+  medium_index: torch.Tensor  # () int32 medium the camera sits in, -1: vacuum
 
 
 class Emitters(NamedTuple):
@@ -60,6 +63,22 @@ class Emitters(NamedTuple):
   pdf: torch.Tensor            # (E,) float32 discrete selection pdf
   cdf: torch.Tensor            # (E,) float32 inclusive cdf
   total_weight: torch.Tensor   # () float32
+
+
+class Mediums(NamedTuple):
+  """Participating media, one row each (a scene without media has one row of
+  class 0). `grid` holds every heterogeneous medium's density grid,
+  normalised to a maximum of 1 and padded to the largest grid's shape (a
+  1-voxel grid of ones when no medium has one)."""
+  cls: torch.Tensor              # (D,) int32: 0 none, 1 homogeneous, 2 heterogeneous
+  absorption_spec: torch.Tensor  # (D,) int32 spectrum bank row
+  scattering_spec: torch.Tensor  # (D,) int32
+  phase_g: torch.Tensor          # (D,) float32 Henyey-Greenstein asymmetry
+  max_sigma: torch.Tensor        # (D,) float32 majorant: max scattering + max absorption
+  grid: torch.Tensor             # (D, gz, gy, gx) float32 density
+  bounds_min: torch.Tensor       # (D,3) the grid's box
+  bounds_max: torch.Tensor       # (D,3)
+  explicit_connections: torch.Tensor  # (D,) int32: NEE from points in the medium
 
 
 class BVH(NamedTuple):
@@ -101,6 +120,8 @@ class DeviceScene(NamedTuple):
   camera: Camera
   bsphere_center: torch.Tensor  # (3,) centre of the vertices' bounding box
   bsphere_radius: torch.Tensor  # () farthest vertex from it (at least 1e-3)
+  mediums: Mediums
+  radiance_clamp: torch.Tensor  # () float32: a sample's luminance cap, 0: none
   bvh: Optional[BVH] = None
   spec_at_wl: Optional[tuple] = None
 
@@ -119,6 +140,12 @@ class SceneConfig:
   material_classes: tuple = (0,)
   # "blackman-harris" (iteration 0 renders pixel centers), "box" or "center"
   pixel_filter: str = "blackman-harris"
+  has_media: bool = False
+  has_subsurface: bool = False
+  # subsurface classes present (1 RandomWalk, 2 ChristensenBurley)
+  subsurface_classes: tuple = (1,)
+  # a radiance clamp is set (it turns deferred NEE off, as media do)
+  has_radiance_clamp: bool = False
 
 
 def _to(x, device):
@@ -148,7 +175,8 @@ def bvh_from_arrays(arrays, device) -> BVH:
 
 def scene_from_arrays(arrays, device) -> DeviceScene:
   """Build a DeviceScene from numpy arrays keyed by dotted field path
-  ("tri_v0", "camera.position", "emitters.cdf", "bvh.node_table", ...;
+  ("tri_v0", "camera.position", "emitters.cdf", "mediums.grid",
+  "bvh.node_table", ...;
   `bvh_from_arrays`). Extra keys are ignored; a missing key raises
   KeyError, but for "bvh.fat_table"."""
   device = torch.device(device)
@@ -160,6 +188,7 @@ def scene_from_arrays(arrays, device) -> DeviceScene:
     return cls(**{f: t(f"{prefix}.{f}") for f in cls._fields})
 
   flat = {f: t(f) for f in DeviceScene._fields
-          if f not in ("emitters", "camera", "bvh", "spec_at_wl")}
+          if f not in ("emitters", "camera", "mediums", "bvh", "spec_at_wl")}
   return DeviceScene(emitters=sub(Emitters, "emitters"), camera=sub(Camera, "camera"),
-                     bvh=bvh_from_arrays(arrays, device), **flat)
+                     mediums=sub(Mediums, "mediums"), bvh=bvh_from_arrays(arrays, device),
+                     **flat)

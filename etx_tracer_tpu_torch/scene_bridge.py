@@ -20,8 +20,6 @@ from etx_tracer_tpu_torch.scene.builder import RENDERED_CLASSES
 # JAX SceneConfig fields and the values the port supports (anything else
 # belongs to a later slice)
 _REQUIRED = {
-    "has_media": False,
-    "has_subsurface": False,
     "has_env_emitters": False,
     "has_images": False,
     "num_env_emitters": 0,
@@ -30,7 +28,6 @@ _REQUIRED = {
     "equirectangular": False,
     "diffuse_variations": (0,),
     "has_alpha": False,
-    "has_radiance_clamp": False,
     "validate": False,
 }
 
@@ -41,7 +38,7 @@ def check_supported(config_fields) -> None:
     if name in config_fields and config_fields[name] != want:
       raise NotImplementedError(
           f"SceneConfig.{name}={config_fields[name]!r}: the port renders only "
-          f"{name}={want!r} (scenes of area emitters without media or textures)")
+          f"{name}={want!r} (scenes of area emitters without textures)")
   classes = tuple(config_fields.get("material_classes", ()))
   if not set(classes) <= set(RENDERED_CLASSES):
     raise NotImplementedError(

@@ -178,34 +178,37 @@ def assert_bvh_holds_tree(bvh, arrays):
   assert not rows[:, 10:].any()
 
 
-@pytest.mark.parametrize("field,value", [("has_images", True), ("has_media", True),
-                                         ("material_classes", (0, 6)),
-                                         ("has_radiance_clamp", True)])
+@pytest.mark.parametrize("field,value", [("has_images", True), ("material_classes", (0, 6))])
 def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   with pytest.raises(NotImplementedError):
     scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("spectral", True), ("material_classes", (0, 3, 4, 5))])
+@pytest.mark.parametrize("field,value", [("spectral", True), ("material_classes", (0, 3, 4, 5)),
+                                         ("has_media", True), ("has_radiance_clamp", True),
+                                         ("material_classes", (0, 7))])
 def test_scene_bridge_accepts_the_materials_options(jax_scene, field, value):
+  """The options of the ported slices: spectral mode and the materials
+  classes, media, the radiance clamp and the Boundary class."""
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   _, config = scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
   assert getattr(config, field) == value
 
 
-@pytest.mark.parametrize("kwargs", [{"with_light": False}, {"fog_grid": np.ones((2, 2, 2))},
-                                    {"specular_boxes": True}, {"fog_scattering": 0.5}])
+@pytest.mark.parametrize("kwargs", [{"with_light": False}, {"specular_boxes": True}])
 def test_cornell_options_of_later_slices_raise(kwargs):
   with pytest.raises(NotImplementedError, match="slice"):
     pcornell.build_cornell_box(film_size=FILM, **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [{"spectral": True, "diffuse_only": True},
-                                    {"diffuse_only": False}])
+                                    {"diffuse_only": False}, {"fog_grid": np.ones((2, 2, 2))},
+                                    {"fog_scattering": 0.5}])
 def test_cornell_options_of_the_materials_slice_build_as_in_jax(monkeypatch, kwargs):
-  """The spectral Cornell box and the one with the conductor tall box freeze
-  the JAX package's tables."""
+  """The spectral Cornell box, the one with the conductor tall box and the
+  ones filled with a heterogeneous or a homogeneous fog (the media slice)
+  freeze the JAX package's tables."""
   _numpy_tree(monkeypatch)
   arrays, config = pcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
                                               **kwargs).arrays()
@@ -455,16 +458,23 @@ woop = woop_trace.intersect(cs.tri_v0, cs.tri_e1, cs.tri_e2, o, d, t0, t1)
 assert woop.t.shape == (4,) and woop_trace.launches == {"intersect": 0, "occluded": 0}
 lines = micro.run("trace_sorted", "cpu", 64)
 assert [x.label for x in lines] == ["fat+sort bounce", "fat+sort random"]
+from etx_tracer_tpu_torch.scene import volumetric
+for b in (volumetric.volumetric((8, 8)), volumetric.subsurface_cornell((8, 8))):
+  scene, config = b.build(device="cpu")
+  assert config.has_media or config.has_subsurface
+  img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
+  assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")
 """
 
 
-def test_port_and_chip_smoke_import_no_jax():
+def test_port_and_chip_smoke_import_no_jax(tmp_path):
   env = dict(os.environ)
   env.pop("PYTHONPATH", None)
   env["PYTHONPATH"] = str(REPO)
+  env["XDG_CACHE_HOME"] = str(tmp_path)  # the volumetric scene's `.vol` cloud
   out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=300)
   assert out.returncode == 0, out.stderr[-4000:]
