@@ -95,7 +95,35 @@ Phases, one line each with its elapsed seconds:
      `scene/volumetric.subsurface_cornell`) at 384x384, max path length 6,
      a 2^18-lane pool and 4 iterations, gated, timed and profiled, with K1's
      launches a bounce inside the walk;
-  19. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  19. main path, caustics VCM: the JAX package's bench config 5 (the glass
+     torus over the Cornell floor, 1,060 triangles; `scene/caustics`) at
+     256x256, spectral, max path length 16, by full VCM (`models/vcm.py`,
+     default options: connections, merging with 16 photons a cell, 65,536
+     light paths an iteration): iteration 0 warms up, iterations 1-3 are
+     timed through `render_iteration_stats` (seconds and rays an
+     iteration, Mrays/s), every trace through K3/K4; gated (finite, the
+     light layer's luminance >= 0 and the image's mean luminance > 0, mean
+     within +-10% of the port's 128x128 CPU render, red left third, green
+     right third) and one more iteration, at 128x128, profiled (bounces of
+     both passes, kernels and host reads, device busy share); then camera
+     step 1 of one more 256x256 iteration captured as the main path runs
+     it: K3 on its closest-hit rays (65,536) and K4 on its (R*V)-wide
+     vertex connection batch (524,288), each held bit-equal against its
+     plain version and timed beside its bound; the capped merge grid
+     (16 photons a cell) built on the card and again on the CPU from the
+     same light vertices, held bit-equal (the throughput's RGB within
+     1e-5 of each photon's largest channel), and that step's
+     `merge_gather` run again on the CPU on the CPU's grid, within 1e-5
+     of each lane's largest channel on 99.9% of the lanes and 1e-4 on
+     all;
+  20. main path, volumetric BDPT: bench config 4 (the cloud) at 256x256,
+     max path length 10, by BDPT, timed, gated (>= 0, mean within +-10% of
+     the port's 128x128 CPU render) and profiled at 256x256, every trace
+     (the transmittance walks of connections and NEE included) through K1;
+     then K1 on camera step 1's closest-hit rays and on the first segment
+     of its (R*V)-wide transmittance walk, captured, held bit-equal and
+     timed as in phase 19;
+  21. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
      against the same render on the CPU; the 32x32 bigscene render (8 spp)
@@ -103,8 +131,12 @@ Phases, one line each with its elapsed seconds:
      fat rows removed, through K7/K8; the 32x32 volumetric (4 spp),
      random-walk and Christensen-Burley SSS (2 spp each) and fog with a
      Boundary cube and a radiance clamp (4 spp) renders on the card against
-     the CPU;
-  20. micro: the micro-benchmark entry
+     the CPU; and the VCM slice's 32x32 renders on the card against the CPU:
+     VCM (without the per-cell cap) and light tracing on the diffuse Cornell
+     box (4 iterations), caustics VCM (spectral, without the cap, 2
+     iterations, through K3/K4) and volumetric BDPT (2 iterations, through
+     K1);
+  22. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
      against bigscene; `trace_brute`: K3/K4 against K9a/K9b on 2^18 random
@@ -134,12 +166,13 @@ import numpy as np
 import torch
 
 from etx_tracer_tpu_torch.core import spectrum
-from etx_tracer_tpu_torch.models import path_tracing
+from etx_tracer_tpu_torch.models import path_tracing, vcm
 from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film as film_mod
 from etx_tracer_tpu_torch.scene import bigscene, caustics, cornell, materials, volumetric
+from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as scene_types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -219,6 +252,55 @@ SUBSURFACE_ITERATIONS = 4
 # ... and its mean: the port's CPU render at 64x64, 4 spp, 0.065555 (the same
 # script; the JAX package's 0.065557), +-10%
 SUBSURFACE_MEAN = (0.05900, 0.07211)
+# VCM slice main paths, the JAX package's bench configs 5 (caustics, full
+# VCM, spectral) and 4 (the cloud, BDPT) at the bench's film, through
+# `models/vcm.py`: iteration 0 warms up, iterations 1..VCM_TIMED are timed
+# (`bench.py:_vcm_iter_stats`)
+VCM_SIZE = (256, 256)
+VCM_TIMED = 3
+# their image means after iterations 0..VCM_TIMED must lie in these ranges:
+# the port's CPU render of each path at 128x128 and as many iterations
+# (`python -m tests.vcm_reference_means 128`), +-10%: caustics VCM 0.070216,
+# volumetric BDPT 0.020555. At 64x64 the means are 0.063049 (the merge
+# radius, 4x the 256x256 one, darkens the caustics) and 0.018293 (16,384
+# BDPT paths of the cloud; path tracing at 64x64 and 8 spp gives 0.020675)
+CAUSTICS_VCM_MEAN = (0.06319, 0.07724)
+VOLUMETRIC_BDPT_MEAN = (0.01850, 0.02261)
+# the camera step whose rays the VCM-family captured phases hold the
+# kernels on: the first bounce after the camera rays' hits, while the
+# camera pass still runs at its full width (65,536 lanes; its cascade
+# narrows only once at most a quarter of them live)
+VCM_CAPTURE_STEP = 1
+# the card's merge grid and merge against the CPU's, by a row's largest
+# difference over its largest |value| (`row_rel_diff`): every photon's
+# throughput RGB within MERGE_RTOL; the merged RGB within MERGE_RTOL on
+# MERGE_SHARE of the lanes and within MERGE_RTOL_ALL on every lane (a
+# lane's sum of photons of other wavelengths may cancel in a channel, and
+# the card's and the CPU's exponentials in the CIE fit round apart)
+MERGE_RTOL = 1e-5
+MERGE_SHARE = 0.999
+MERGE_RTOL_ALL = 1e-4
+# the caustics VCM path is profiled at this film: the profiler's own cost
+# grows with the kernels an iteration launches (about 275,000), and passed
+# 30 s at 256x256
+CAUSTICS_PROFILE_SIZE = (128, 128)
+# the 32x32 card-vs-CPU renders of the VCM slice: (label, builder, options,
+# iterations, kernels that must launch). Merging runs with a photon cap
+# above every cell's occupancy: with the default cap, an over-full cell
+# keeps the photons first in the order of a hash of their positions' bits,
+# and positions an ulp apart on the card and the CPU keep other photons
+# (tests/test_torch_vcm.py); with a cap of 0 the merge scan stops at 128
+# photons a cell, chosen in the same order
+_UNCAPPED = vcm.VCMOptions(max_photons_per_cell=1 << 20)
+VCM_E2E = (
+    ("VCM Cornell", lambda d: cornell_scene((32, 32), 6, d), _UNCAPPED, 4,
+     ("intersect", "occluded")),
+    ("light-tracing Cornell", lambda d: cornell_scene((32, 32), 6, d),
+     vcm.light_tracing_options(), 4, ("intersect", "occluded")),
+    ("caustics VCM spectral", lambda d: caustics.build_caustics_scene((32, 32)).build(device=d),
+     _UNCAPPED, 2, ("intersect_brute2", "occluded_brute2")),
+    ("volumetric BDPT", lambda d: volumetric.volumetric((32, 32)).build(device=d),
+     vcm.bdpt_options(), 2, ("intersect",)))
 # the 32x32 card-vs-CPU renders of the media slice: (label, builder, spp)
 MEDIA_E2E = (
     ("volumetric", lambda: volumetric.volumetric((32, 32)), 4),
@@ -509,9 +591,10 @@ def kernel_call(name, geometry, plain=False):
   return lambda *rays, tri_mask=None: fn(*head, *rays, tri_mask=tri_mask)
 
 
-def compare_intersect(name, geometry, rays, mask):
+def compare_intersect(name, geometry, rays, mask, ref=None):
   hit = kernel_call(name, geometry)(*rays, tri_mask=mask)
-  ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
+  if ref is None:
+    ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
   torch.cuda.synchronize()
   check(torch.equal(hit.tri, ref.tri), f"{name}: tri differs from the plain version")
   found = ref.tri >= 0
@@ -525,9 +608,10 @@ def compare_intersect(name, geometry, rays, mask):
   return err, float(found.float().mean().item())
 
 
-def compare_occluded(name, geometry, rays, mask):
+def compare_occluded(name, geometry, rays, mask, ref=None):
   occ = kernel_call(name, geometry)(*rays, tri_mask=mask)
-  ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
+  if ref is None:
+    ref = kernel_call(name, geometry, plain=True)(*rays, tri_mask=mask)
   torch.cuda.synchronize()
   check(torch.equal(occ, ref), f"{name}: occlusion differs from the plain version")
   return float(occ.float().mean().item())
@@ -624,11 +708,26 @@ def lane_variants(rays, n: int = FEW_RAYS):
           "strided": (wide[:, :3], wide[:, 3:], t_min, t_max)}
 
 
-def compare(name, geometry, rays, mask):
-  """(max abs error, hit fraction) of the kernel against its plain version."""
+def compare(name, geometry, rays, mask, ref=None):
+  """(max abs error, hit fraction) of the kernel against its plain version
+  (`ref`: the plain version's result on these rays, when it was run)."""
   if name in CLOSEST:
-    return compare_intersect(name, geometry, rays, mask)
-  return 0.0, compare_occluded(name, geometry, rays, mask)
+    return compare_intersect(name, geometry, rays, mask, ref)
+  return 0.0, compare_occluded(name, geometry, rays, mask, ref)
+
+
+def plain_per_pattern(name, geometry, patterns, mask):
+  """The plain version's result on each lane pattern's rays (`patterns`, as
+  `lane_variants` gives them), from one call on all of them together: a
+  ray's plain result does not depend on the other rays, and a plain BVH
+  walk, a Python loop over the walk's steps, takes as long for one ray as
+  for a batch whose longest walk is as long."""
+  sizes = [rays[0].shape[0] for rays in patterns.values()]
+  ref = kernel_call(name, geometry, plain=True)(
+      *(torch.cat([rays[k] for rays in patterns.values()]) for k in range(4)), tri_mask=mask)
+  parts = [torch.split(x, sizes) for x in ref] if name in CLOSEST else [torch.split(ref, sizes)]
+  return {label: (type(ref)(*(p[i] for p in parts)) if name in CLOSEST else parts[0][i])
+          for i, label in enumerate(patterns)}
 
 
 def occupancy_note(name, num_t, num_r):
@@ -681,8 +780,10 @@ def kernel_phase(name, dev, rng, cases, timed):
         continue
       fracs = []
       n_lane = BVH_LANE_RAYS if mod is bvh_trace else FEW_RAYS
-      for variant, lane_rays in lane_variants(rays, n_lane).items():
-        e, frac = compare(name, geometry, lane_rays, mask)
+      patterns = lane_variants(rays, n_lane)
+      refs = plain_per_pattern(name, geometry, patterns, mask)
+      for variant, lane_rays in patterns.items():
+        e, frac = compare(name, geometry, lane_rays, mask, refs[variant])
         err = max(err, e)
         fracs.append(f"{variant} {frac:.4f}")
       say(name, f"{label} masked={mask is not None} {min(n_lane, num_r)} rays under each lane "
@@ -881,26 +982,55 @@ def captured_phase(label, names, scene, config, dev):
 
 
 class Counting:
-  """Counts, while it is entered, the calls of `path_tracing.pt_step`
-  (bounces) and of `torch.Tensor.item` (host reads)."""
+  """Counts, while it is entered, the calls of the bounce functions `steps`
+  ((module, name) pairs; default `path_tracing.pt_step`) and of
+  `torch.Tensor.item` and `torch.Tensor.tolist` (host reads)."""
+
+  def __init__(self, steps=((path_tracing, "pt_step"),)):
+    self.steps = steps
 
   def __enter__(self):
     self.bounces = self.host_reads = 0
-    self._step, self._item = path_tracing.pt_step, torch.Tensor.item
+    self._saved = [(mod, name, getattr(mod, name)) for mod, name in self.steps]
+    self._item, self._tolist = torch.Tensor.item, torch.Tensor.tolist
 
-    def step(*args, **kwargs):
-      self.bounces += 1
-      return self._step(*args, **kwargs)
+    def counted(fn):
+      def step(*args, **kwargs):
+        self.bounces += 1
+        return fn(*args, **kwargs)
+      return step
 
-    def item(t):
-      self.host_reads += 1
-      return self._item(t)
+    def read(fn):
+      def host(t):
+        self.host_reads += 1
+        return fn(t)
+      return host
 
-    path_tracing.pt_step, torch.Tensor.item = step, item
+    for mod, name, fn in self._saved:
+      setattr(mod, name, counted(fn))
+    torch.Tensor.item, torch.Tensor.tolist = read(self._item), read(self._tolist)
     return self
 
   def __exit__(self, *exc):
-    path_tracing.pt_step, torch.Tensor.item = self._step, self._item
+    for mod, name, fn in self._saved:
+      setattr(mod, name, fn)
+    torch.Tensor.item, torch.Tensor.tolist = self._item, self._tolist
+
+
+def device_summary(prof):
+  """(device busy us, kernels launched, [(us, launches, name)] by time) of a
+  finished profile, from its raw kernel records (`key_averages` builds an
+  event object for each record: about a minute for a materials or VCM
+  iteration's hundreds of thousands of launches)."""
+  per_name = {}
+  for ev in prof.profiler.kineto_results.events():
+    if ev.device_type() == torch.autograd.DeviceType.CUDA:
+      t, n = per_name.get(ev.name(), (0.0, 0))
+      per_name[ev.name()] = (t + ev.duration_ns() / 1e3, n + 1)
+  by_name = sorted(((t, n, key) for key, (t, n) in per_name.items()), reverse=True)
+  busy_us = sum(t for t, _, _ in by_name)
+  check(busy_us > 0.0, "the profiler recorded no device time")
+  return busy_us, sum(n for _, n, _ in by_name), by_name
 
 
 def profile_step_mix(label, scene, config, dev):
@@ -918,15 +1048,7 @@ def profile_step_mix(label, scene, config, dev):
     path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-  busy_us, launched, by_name = 0.0, 0, []
-  for ev in prof.key_averages():
-    t = ev.self_device_time_total
-    if t > 0.0:
-      busy_us += t
-      launched += ev.count
-      by_name.append((t, ev.count, ev.key))
-  by_name.sort(reverse=True)
-  check(busy_us > 0.0, "the profiler recorded no device time")
+  busy_us, launched, by_name = device_summary(prof)
   say("profile", f"{label} 1 spp: {steps} bounces, {wall_ms:.1f} ms wall, device busy "
       f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.3f} of wall), "
       f"{launched / max(steps, 1):.0f} kernels and "
@@ -938,6 +1060,319 @@ def profile_step_mix(label, scene, config, dev):
     if any(n in key for n in names):
       say("profile", f"  trace kernel {key[:60]}: {count} launches, "
           f"{t / 1e3 / count:.4f} ms per launch")
+
+
+def vcm_main(label, scene, config, options, dev):
+  """One VCM-family main path: iteration 0 warms up, iterations 1 to
+  VCM_TIMED are timed, each through `render_iteration_stats`, with the
+  launch counts set to 0 just before iteration 0 and read after the last.
+  Returns (film state, image, counts)."""
+  fs = film_mod.allocate(config.film_width, config.film_height, dev)
+  reset_counts()
+  fs, _ = vcm.render_iteration_stats(scene, config, options, fs, 0, device=dev)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  rays = 0
+  for i in range(1, 1 + VCM_TIMED):
+    fs, r = vcm.render_iteration_stats(scene, config, options, fs, i, device=dev)
+    rays += int(r.item())
+  torch.cuda.synchronize()
+  seconds = (time.perf_counter() - t0) / VCM_TIMED
+  counts = read_counts()
+  rays_it = rays / VCM_TIMED
+  launched = {k: n for k, n in counts.items() if n}
+  say("main", f"{label}: {seconds:.3f} s an iteration, {rays_it:.0f} rays an iteration, "
+      f"{rays_it / seconds / 1e6:.3f} Mrays/s (iterations 1-{VCM_TIMED}); launches in "
+      f"iterations 0-{VCM_TIMED} {launched}")
+  img = film_mod.result_image(fs).cpu().numpy()
+  check(img.shape == (config.film_height, config.film_width, 3), f"image shape {img.shape}")
+  check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
+  return fs, img, counts
+
+
+def main_path_caustics(scene, config, dev):
+  """Bench config 5 by full VCM: every trace through K3/K4 (1,060
+  triangles). A spectral sample's RGB may leave the gamut, and a merged
+  photon's RGB is the product of two such RGBs (the camera side's and the
+  stored photon's), so a pixel's luminance may fall below 0 too (the JAX
+  package merges the same way): the gate holds the light layer's
+  luminance (splats of spectral samples) to >= 0 on every pixel (beyond
+  rounding) and the image's mean luminance above 0."""
+  check(config.spectral and config.max_path_length == 16
+        and scene.tri_v0.shape[0] == caustics.NUM_TRIANGLES, f"caustics config {config}")
+  options = vcm.VCMOptions()
+  label = f"caustics VCM {VCM_SIZE[0]}x{VCM_SIZE[1]} spectral mpl 16"
+  fs, img, counts = vcm_main(label, scene, config, options, dev)
+  lum = spectrum.RGB_TO_XYZ[1].astype(np.float64)
+  y = img @ lum
+  y_light = fs.light.cpu().numpy() @ lum
+  check(float(y_light.min()) >= -1e-5 * max(1.0, float(img.max())),
+        f"caustics VCM: negative light-layer luminance {y_light.min()}")
+  check(float(y.mean()) > 0.0, f"caustics VCM: mean luminance {y.mean()}")
+  say("main", f"caustics VCM luminance: mean {float(y.mean()):.5f}, pixels below 0 "
+      f"{float((y < 0.0).mean()):.4f} (least {float(y.min()):.4f}), least light-layer pixel "
+      f"{float(y_light.min()):.3e}")
+  mean = float(img.mean())
+  lo, hi = CAUSTICS_VCM_MEAN
+  check(lo <= mean <= hi, f"caustics VCM: image mean {mean} outside [{lo}, {hi}]")
+  left, right = check_thirds(img, "caustics VCM")
+  say("main", f"caustics VCM image mean {mean:.5f}, negative-channel pixels "
+      f"{float((img < 0.0).any(axis=-1).mean()):.4f}, left third RGB {left}, right third RGB "
+      f"{right}")
+  for key in ("intersect_brute2", "occluded_brute2"):
+    check(counts[key] > 0, f"the caustics VCM main path never launched the {key} kernel")
+  others = {k: n for k, n in counts.items() if n and k not in ("intersect_brute2",
+                                                                "occluded_brute2")}
+  check(not others, f"the caustics VCM main path launched {others}")
+  del fs
+  small = caustics.build_caustics_scene(CAUSTICS_PROFILE_SIZE).build(device=dev)
+  profile_vcm(f"caustics VCM {CAUSTICS_PROFILE_SIZE[0]}x{CAUSTICS_PROFILE_SIZE[1]} spectral "
+              "mpl 16", *small, options, dev)
+  return counts
+
+
+def main_path_volumetric_bdpt(scene, config, dev):
+  """Bench config 4 by BDPT: every trace, the transmittance walks of the
+  camera connections, NEE and the (R*V)-wide vertex connections included,
+  through K1; no shadow ray reaches K2."""
+  check(config.has_media and config.max_path_length == 10, f"volumetric config {config}")
+  options = vcm.bdpt_options()
+  label = f"volumetric BDPT {VCM_SIZE[0]}x{VCM_SIZE[1]} mpl 10"
+  _, img, counts = vcm_main(label, scene, config, options, dev)
+  gate_mean("volumetric BDPT", img, VOLUMETRIC_BDPT_MEAN)
+  check(counts["intersect"] > 0, "the volumetric BDPT main path never launched the intersect "
+        "kernel")
+  others = {k: n for k, n in counts.items() if n and k != "intersect"}
+  check(not others, f"the volumetric BDPT main path launched {others}")
+  profile_vcm(label, scene, config, options, dev)
+  return counts
+
+
+def profile_vcm(label, scene, config, options, dev):
+  """One more iteration of a VCM-family path counted (bounces of both
+  passes, host reads), then one under the profiler: wall time, the
+  device's busy share, kernels a bounce and the kernels that take most of
+  the device time."""
+  from torch.profiler import ProfilerActivity, profile
+  fs = film_mod.allocate(config.film_width, config.film_height, dev)
+  with Counting(((vcm, "_light_step"), (vcm, "_camera_step"))) as counted:
+    vcm.render_iteration(scene, config, options, fs, VCM_TIMED + 1, device=dev)
+    torch.cuda.synchronize()
+  steps = counted.bounces
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t1 = time.perf_counter()
+    vcm.render_iteration(scene, config, options, fs, VCM_TIMED + 2, device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+  busy_us, launched, by_name = device_summary(prof)
+  say("profile", f"{label}, one iteration: {steps} bounces (light and camera), {wall_ms:.1f} ms "
+      f"wall, device busy {busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.3f} of wall), "
+      f"{launched} kernels ({launched / max(steps, 1):.0f} a bounce), {counted.host_reads} host "
+      f"reads ({counted.host_reads / max(steps, 1):.1f} a bounce); profiler and its summary "
+      f"{time.perf_counter() - t0:.1f} s")
+  for t, count, key in by_name[:6]:
+    say("profile", f"  {t / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+  names = {entry[2] for entry in KERNELS.values()}
+  for t, count, key in by_name:
+    if any(n in key for n in names):
+      say("profile", f"  trace kernel {key[:60]}: {count} launches, "
+          f"{t / 1e3 / count:.4f} ms per launch")
+
+
+def to_cpu(x):
+  """`x` with every tensor in it (through NamedTuples, tuples, dicts and
+  material rows) copied to the CPU."""
+  if isinstance(x, torch.Tensor):
+    return x.cpu()
+  if isinstance(x, packed.MaterialRows):
+    return packed.MaterialRows(x._rows.cpu())
+  if isinstance(x, dict):
+    return {k: to_cpu(v) for k, v in x.items()}
+  if isinstance(x, tuple):
+    items = [to_cpu(v) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+  return x
+
+
+def capture_vcm_step(scene, config, options, dev, step: int):
+  """What camera step `step` of one VCM-family iteration (iteration 1)
+  traces, as the trace dispatch receives them: the rays of its closest-hit
+  trace ("closest") and of the first trace of its vertex connections
+  ("connect": the (R*V)-wide any-hit batch, or with media the first
+  segment of the (R*V)-wide transmittance walk); with merging also the
+  arguments and result of the iteration's `build_merge_grid` ("grid") and
+  of the step's `merge_gather` ("merge")."""
+  from etx_tracer_tpu_torch.ops import trace as trace_ops
+  seen = {"step": -1, "connecting": False}
+  got = {}
+  traces = {kind: getattr(trace_ops, kind) for kind in ("trace_closest", "trace_occluded")}
+  wrapped = {name: getattr(vcm, name) for name in ("_camera_step", "_connect_vertices",
+                                                   "merge_gather", "build_merge_grid")}
+
+  def hook(kind):
+    def trace(sc, o, d, t_min, t_max, tri_mask=None):
+      check(tri_mask is None, "the main path passed a triangle mask")
+      key = "connect" if seen["connecting"] else "closest"
+      if (seen["step"] == step and key not in got
+          and (seen["connecting"] or kind == "trace_closest")):
+        got[key] = tuple(x.clone() for x in (o, d, t_min, t_max))
+      return traces[kind](sc, o, d, t_min, t_max)
+    return trace
+
+  def camera_step(*args, **kwargs):
+    seen["step"] += 1
+    return wrapped["_camera_step"](*args, **kwargs)
+
+  def connect(*args, **kwargs):
+    seen["connecting"] = True
+    try:
+      return wrapped["_connect_vertices"](*args, **kwargs)
+    finally:
+      seen["connecting"] = False
+
+  def gather(*args, **kwargs):
+    out = wrapped["merge_gather"](*args, **kwargs)
+    if seen["step"] == step and "merge" not in got:
+      got["merge"] = (args, kwargs, out)
+    return out
+
+  def build(*args, **kwargs):
+    out = wrapped["build_merge_grid"](*args, **kwargs)
+    got["grid"] = (args, kwargs, out)
+    return out
+
+  hooks = {"_camera_step": camera_step, "_connect_vertices": connect, "merge_gather": gather,
+           "build_merge_grid": build}
+  try:
+    for kind in traces:
+      setattr(trace_ops, kind, hook(kind))
+    for name, fn in hooks.items():
+      setattr(vcm, name, fn)
+    fs = film_mod.allocate(config.film_width, config.film_height, dev)
+    vcm.render_iteration(scene, config, options, fs, 1, device=dev)
+    torch.cuda.synchronize()
+  finally:
+    for kind, fn in traces.items():
+      setattr(trace_ops, kind, fn)
+    for name, fn in wrapped.items():
+      setattr(vcm, name, fn)
+  want = {"closest", "connect"} | ({"grid", "merge"} if options.enable_merging else set())
+  check(want <= set(got), f"camera step {step} traced or merged less than {sorted(want)}: "
+        f"{sorted(got)}")
+  return got
+
+
+def hold_captured(what, name, geometry, rays):
+  """Kernel `name` on rays captured from a main path (`what` says where):
+  held bit-equal against its plain version, then timed with its plain
+  version, beside its live share and bound. Returns the row for the
+  `kernels` note."""
+  e, frac = compare(name, geometry, rays, None)
+  check(e == 0.0, f"{name} on {what}: t/u/v differ from the plain version by up to {e}")
+  run = kernel_call(name, geometry)
+  ms = kernel_ms(lambda: run(*rays), KERNELS[name][2], 50)
+  plain = kernel_call(name, geometry, plain=True)
+  plain_ms = event_ms(lambda: plain(*rays), 1)
+  ops, nbytes, counted, _ = work(name, geometry, rays)
+  b_ms, b_by = bound_ms(ops, nbytes)
+  live = live_lanes(name, rays)
+  say("captured", f"{name} on {what} ({rays[0].shape[0]} lanes, live share "
+      f"{float(live.float().mean().item()):.4f}, hit fraction {frac:.4f}): bit-equal to the "
+      f"plain version; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+      f"{b_by} ({ops} FP32 operations from {counted}, {nbytes} bytes)")
+  return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def merge_card_vs_cpu(got):
+  """The capped merge grid, built on the card and again on the CPU from the
+  same light vertices, bit-equal (the sort and every column but the
+  throughput's RGB, which goes through the CIE fit's exponentials in
+  spectral mode: within MERGE_RTOL of each photon's largest channel); then
+  the captured `merge_gather` run again on the CPU on the CPU's grid and
+  held to the card's result (MERGE_RTOL on MERGE_SHARE of the lanes,
+  MERGE_RTOL_ALL on all)."""
+  args, kwargs, grid = got["grid"]
+  cpu = vcm.build_merge_grid(*to_cpu(args), **to_cpu(kwargs))
+  cap = grid.cell_cap
+  for f in ("sorted_cell", "pos", "nrm", "w_i", "d_vcm", "d_vm", "path_length", "valid",
+            "grid_min"):
+    check(torch.equal(getattr(grid, f).cpu(), getattr(cpu, f)),
+          f"merge grid: {f} differs between the card and the CPU")
+  check(torch.equal(grid.rows[:, :11].cpu(), cpu.rows[:, :11])
+        and torch.equal(grid.rows[:, 14:].cpu(), cpu.rows[:, 14:]),
+        "merge grid: packed rows differ between the card and the CPU")
+  check(grid.cell_size == cpu.cell_size and cap == cpu.cell_cap, "merge grid: cell size or cap")
+  thr_rel = float(row_rel_diff(grid.rows[:, 11:14].cpu().numpy(), cpu.rows[:, 11:14].numpy()).max())
+  check(thr_rel <= MERGE_RTOL, f"merge grid: throughput RGB differs by {thr_rel} of a row")
+  cells = grid.sorted_cell.cpu()
+  _, occ = torch.unique_consecutive(cells[cells <= vcm._HASH_MASK], return_counts=True)
+  dropped = int((cells <= vcm._HASH_MASK).sum()) - int(grid.valid.sum())
+  check(cap > 0 and int(occ.max()) > cap and dropped > 0,
+        f"merge grid: no cell over the cap of {cap} (largest {int(occ.max())})")
+  say("captured", f"merge grid ({cells.shape[0]} slots): card and CPU sort, cells and rows "
+      "bit-equal, throughput RGB "
+      + ("bit-equal" if thr_rel == 0.0 else
+         f"within {thr_rel:.2e} of each photon's largest channel (limit {MERGE_RTOL})")
+      + "; "
+      f"{int((occ > cap).sum())} of {occ.shape[0]} cells over the cap of {cap} (largest "
+      f"{int(occ.max())}), {dropped} photons dropped")
+
+  args, kwargs, merged = got["merge"]
+  args = to_cpu(args)
+  out = vcm.merge_gather(args[0], cpu, *args[2:], **to_cpu(kwargs)).numpy()
+  card = merged.cpu().numpy()
+  diff = np.abs(card - out)
+  lanes = int((out != 0.0).any(axis=-1).sum())
+  check(lanes > 0, "merge_gather: no lane merged a photon")
+  rel = row_rel_diff(card, out)
+  within = float((rel <= MERGE_RTOL).mean())
+  check(within >= MERGE_SHARE and float(rel.max()) <= MERGE_RTOL_ALL,
+        f"merge_gather: {within} of the lanes within {MERGE_RTOL} of their largest channel, "
+        f"the worst at {float(rel.max())}")
+  say("captured", f"merge_gather on camera step {VCM_CAPTURE_STEP} ({out.shape[0]} lanes, "
+      f"{lanes} with a merged photon), card against the CPU on the CPU's grid, over each "
+      f"lane's largest channel: {within:.5f} of the lanes within {MERGE_RTOL} (p99.9 "
+      f"{float(np.quantile(rel, 0.999)):.2e}), the worst {float(rel.max()):.2e} (limit "
+      f"{MERGE_RTOL_ALL}); largest abs diff {float(diff.max()):.3e}, largest value "
+      f"{float(np.abs(out).max()):.4f}")
+
+
+def row_rel_diff(a, b):
+  """Each row's largest difference of `a` from `b`, over the largest
+  |value| of that row of `b` (rows of zeros must be equal): a spectral
+  sample's RGB comes out of the XYZ-to-RGB matrix, where a channel near 0
+  is the difference of large terms, so a channel's own relative error says
+  nothing."""
+  scale = np.abs(b).max(axis=-1)
+  diff = np.abs(a - b).max(axis=-1)
+  check(bool((diff[scale == 0.0] == 0.0).all()), "a zero row differs")
+  return diff / np.where(scale > 0.0, scale, 1.0)
+
+
+def captured_vcm_phase(label, scene, config, options, names, dev):
+  """The rays of camera step VCM_CAPTURE_STEP of a VCM-family main path:
+  the closest-hit kernel (names[0]) on its closest-hit rays, names[1] on
+  the first trace of its (R*V)-wide vertex connections, each held against
+  its plain version and timed; with merging also the merge grid and
+  `merge_gather`, card against CPU. Returns the rows for the `kernels`
+  note."""
+  got = capture_vcm_step(scene, config, options, dev, VCM_CAPTURE_STEP)
+  lanes = config.film_width * config.film_height
+  width = got["closest"][0].shape[0]
+  check(width == lanes and got["connect"][0].shape[0] == lanes * options.max_stored_vertices,
+        f"{label}: camera step {VCM_CAPTURE_STEP} ran at {width} lanes, not {lanes}")
+  geometry = (list(scene[:3]), None)
+  rows = {}
+  for key, name in zip(("closest", "connect"), names):
+    what = (f"the {label} main path's camera step {VCM_CAPTURE_STEP} "
+            + ("closest-hit rays" if key == "closest" else
+               "vertex connections (first transmittance segment)" if config.has_media else
+               "vertex connections"))
+    rows[f"{name} {key}"] = hold_captured(what, name, geometry, got[key])
+  if options.enable_merging:
+    merge_card_vs_cpu(got)
+  return rows
 
 
 def volumetric_scene(film, dev):
@@ -1036,28 +1471,19 @@ def captured_segment_phase(scene, config, dev):
   2: held against its plain version, timed, with its live share and bound.
   Returns the row for the `kernels` line's note."""
   rays = capture_segment(scene, config, dev, CAPTURE_BOUNCE)
-  geometry = (list(scene[:3]), None)
-  e, frac = compare("intersect", geometry, rays, None)
-  run = kernel_call("intersect", geometry)
-  ms = kernel_ms(lambda: run(*rays), KERNELS["intersect"][2], 50)
-  plain = kernel_call("intersect", geometry, plain=True)
-  plain_ms = event_ms(lambda: plain(*rays), 1)
-  ops, nbytes, counted, _ = work("intersect", geometry, rays)
-  b_ms, b_by = bound_ms(ops, nbytes)
-  live = live_lanes("intersect", rays)
-  say("captured", f"intersect on the volumetric main path's bounce {CAPTURE_BOUNCE} "
-      f"transmittance segment ({rays[0].shape[0]} lanes, live share "
-      f"{float(live.float().mean().item()):.4f}, hit fraction {frac:.4f}): matches the plain "
-      f"version (max abs err {e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-      f"{b_ms:.4f} ms by {b_by} ({ops} FP32 operations from {counted}, {nbytes} bytes)")
-  return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+  return hold_captured(f"the volumetric main path's bounce {CAPTURE_BOUNCE} transmittance "
+                       "segment", "intersect", (list(scene[:3]), None), rays)
 
 
-def render_small(build, dev_name: str, iterations: int):
+def render_small(build, dev_name: str, iterations: int, options=None):
+  """A small render through `path_tracing.render`, or with `options`
+  through `vcm.render`."""
   scene, config = build(dev_name)
-  img = film_mod.result_image(path_tracing.render(scene, config, iterations=iterations,
-                                                  device=dev_name))
-  return img.cpu().numpy()
+  if options is None:
+    fs = path_tracing.render(scene, config, iterations=iterations, device=dev_name)
+  else:
+    fs = vcm.render(scene, config, options, iterations=iterations, device=dev_name)
+  return film_mod.result_image(fs).cpu().numpy()
 
 
 def same_image(phase, label, img, ref):
@@ -1073,9 +1499,9 @@ def same_image(phase, label, img, ref):
   check(mean_rel <= E2E_MEAN_RTOL, f"{label}: image means differ by {mean_rel}")
 
 
-def card_vs_cpu(label, build, iterations):
-  card = render_small(build, "cuda", iterations)
-  cpu = render_small(build, "cpu", iterations)
+def card_vs_cpu(label, build, iterations, options=None):
+  card = render_small(build, "cuda", iterations, options)
+  cpu = render_small(build, "cpu", iterations, options)
   same_image("e2e", f"{label}, card vs CPU", card, cpu)
   return card
 
@@ -1112,6 +1538,13 @@ def end_to_end():
     counts = read_counts()
     say("e2e", f"{label}: launches {counts}")
     check(counts["intersect"] > 0, f"the {label} 32x32 render never launched the intersect kernel")
+  for label, make, options, iterations, want in VCM_E2E:
+    reset_counts()
+    card_vs_cpu(f"{label} 32x32 {iterations} iterations", make, iterations, options)
+    counts = read_counts()
+    launched = {k: n for k, n in counts.items() if n}
+    say("e2e", f"{label}: launches {launched}")
+    check(set(launched) == set(want), f"the {label} 32x32 render launched {launched}, not {want}")
 
 
 def micro_phase(dev):
@@ -1304,6 +1737,16 @@ def main() -> int:
   subsurface_384 = subsurface_scene(VOLUMETRIC_SIZE, dev)
   counts_sss = main_path_subsurface(*subsurface_384, dev)
   profile_step_mix("subsurface 384x384", *subsurface_384, dev)
+  caustics_256 = caustics.build_caustics_scene(VCM_SIZE).build(device=dev)
+  counts_cvcm = main_path_caustics(*caustics_256, dev)
+  rows_cvcm = captured_vcm_phase("caustics VCM", *caustics_256, vcm.VCMOptions(),
+                                 ("intersect_brute2", "occluded_brute2"), dev)
+  del caustics_256
+  volumetric_256 = volumetric_scene(VCM_SIZE, dev)
+  counts_vbdpt = main_path_volumetric_bdpt(*volumetric_256, dev)
+  rows_vbdpt = captured_vcm_phase("volumetric BDPT", *volumetric_256, vcm.bdpt_options(),
+                                  ("intersect", "intersect"), dev)
+  del volumetric_256
   end_to_end()
   counts_micro = micro_phase(dev)
 
@@ -1328,6 +1771,14 @@ def main() -> int:
   say("kernels", f"K1/K2 launches on the volumetric path {counts_vol['intersect']} / "
       f"{counts_vol['occluded']}, on the subsurface path {counts_sss['intersect']} / "
       f"{counts_sss['occluded']}; K1 on the volumetric bounce-2 transmittance segment: {segment}")
+  say("kernels", "K1/K2/K3/K4 launches on the caustics VCM path "
+      + " / ".join(str(counts_cvcm[k]) for k in ("intersect", "occluded", "intersect_brute2",
+                                                 "occluded_brute2"))
+      + ", on the volumetric BDPT path "
+      + " / ".join(str(counts_vbdpt[k]) for k in ("intersect", "occluded", "intersect_brute2",
+                                                  "occluded_brute2"))
+      + f" (iterations 0-{VCM_TIMED} each); on their camera step {VCM_CAPTURE_STEP}: caustics "
+      f"VCM {rows_cvcm}, volumetric BDPT {rows_vbdpt}")
   print(card_line, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   # one card: the run uses cuda:0 and nothing else

@@ -15,6 +15,8 @@ import torch
 
 kPi = 3.14159265358979323846
 kDoublePi = 6.28318530717958647692
+kQuarterPi = 0.78539816339744830961
+kHalfPi = 1.57079632679489661923
 kInvPi = 0.31830988618379067153
 kEpsilon = 1.192092896e-07
 kMaxFloat = 3.402823466e+38
@@ -109,6 +111,20 @@ def sample_cosine_distribution_n(rnd: torch.Tensor, n: torch.Tensor, exponent: f
   u, v = orthonormal_basis(n)
   l = sample_cosine_distribution(rnd, exponent)
   return u * l[..., 0:1] + v * l[..., 1:2] + n * l[..., 2:3]
+
+
+def sample_disk(rnd: torch.Tensor) -> torch.Tensor:
+  """Concentric disk sample, branch-free."""
+  ox = 2.0 * rnd[..., 0] - 1.0
+  oy = 2.0 * rnd[..., 1] - 1.0
+  x_major = torch.abs(ox) > torch.abs(oy)
+  r = torch.where(x_major, ox, oy)
+  safe_ox = torch.where(ox == 0.0, 1.0, ox)
+  safe_oy = torch.where(oy == 0.0, 1.0, oy)
+  theta = torch.where(x_major, kQuarterPi * (oy / safe_ox), kHalfPi - kQuarterPi * (ox / safe_oy))
+  zero = (ox == 0.0) & (oy == 0.0)
+  out = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+  return torch.where(zero[..., None], 0.0, out)
 
 
 def barycentrics(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

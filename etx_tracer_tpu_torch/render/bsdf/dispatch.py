@@ -1,15 +1,18 @@
 """Masked BSDF dispatch over material classes.
 
 Counterpart of `etx_tracer_tpu/render/bsdf/dispatch.py`'s masked dispatch
-(`_sample_masked`, `_evaluate_masked`, `pdf`), which is what the JAX
+(`_sample_masked`, `_evaluate_masked`, `pdf`, `reverse_pdf`), which is what the JAX
 package runs (its material-sorted variants are switched off). Every lobe
 whose class is in the scene's `config.material_classes` runs on the whole
 wavefront and results are selected by class masks; lanes of no listed class
 keep the null result (delta, zero weight). The JAX package wraps each
 costly class in `lax.cond` to skip a bounce with no lane of it; the result
-is the same either way, and here every listed class simply runs. The port
-has the Diffuse, Conductor, Dielectric, Thinfilm and Boundary classes;
-Thinfilm and Boundary are delta lobes that evaluate to zero.
+is the same either way, and here every listed class simply runs, unless
+the caller narrows the dispatch with `restrict` to the lanes whose results
+it reads and the classes they hold (the VCM integrator does; the path
+tracer does not). The port has the Diffuse, Conductor, Dielectric,
+Thinfilm and Boundary classes; Thinfilm and Boundary are delta lobes that
+evaluate to zero.
 """
 
 from __future__ import annotations
@@ -92,6 +95,28 @@ def pdf(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = False,
     if c in _PDFS:
       p = torch.where(cls == c, _PDFS[c](scene, sd, w_o, spectral), p)
   return p
+
+
+def reverse_pdf(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = False,
+                classes=(MC.Diffuse,)):
+  """The pdf of sampling the reverse direction: -w_i from incident -w_o."""
+  return pdf(scene, sd._replace(w_i=-w_o), -sd.w_i, spectral, classes)
+
+
+def restrict(sd: lobes.ShadingData, lanes: torch.Tensor, classes):
+  """A dispatch over the lanes whose results are read: (`sd` with no class,
+  -1, outside `lanes`; the classes of `classes` that the lanes of `lanes`
+  hold, found by one host read). A dispatch of the pair gives each lane of
+  `lanes` what a dispatch of (`sd`, `classes`) gives it, and the null
+  result elsewhere, without running the lobes that no such lane needs (a
+  smooth Dielectric's evaluate and pdf, say, which run on every lane of a
+  listed class whatever its roughness)."""
+  cls = torch.where(lanes, sd.mat.cls, -1)
+  wanted = torch.tensor([int(c) for c in classes], dtype=cls.dtype, device=cls.device)
+  held = (cls[:, None] == wanted).any(dim=0).tolist()
+  rows = sd.mat._rows
+  mat = type(sd.mat)(torch.cat([cls.to(rows.dtype)[:, None], rows[:, 1:]], dim=1))
+  return sd._replace(mat=mat), tuple(c for c, h in zip(classes, held) if h)
 
 
 def is_delta(sd: lobes.ShadingData) -> torch.Tensor:

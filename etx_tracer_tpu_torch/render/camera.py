@@ -1,6 +1,8 @@
 """Camera ray generation and film sampling.
 
-Counterpart of `etx_tracer_tpu/render/camera.py` for the pinhole camera.
+Counterpart of `etx_tracer_tpu/render/camera.py` for the pinhole camera:
+ray generation, the pixel filter, and the light-to-camera connection of
+the bidirectional integrators (`sample_film`, `film_pdf_out`).
 Pixel convention: pixel (px, py) with py=0 at the BOTTOM row of the film
 arrays (NDC v = -1).
 """
@@ -84,3 +86,69 @@ def generate_ray(camera, uv: torch.Tensor) -> RayBundle:
   t_near = torch.where(camera.clip_near > 0.0, camera.clip_near / cos_t, em.kRayEpsilon)
   t_far = torch.where(camera.clip_far > 0.0, camera.clip_far / cos_t, em.kMaxFloat)
   return RayBundle(origin, w_o, torch.clamp(t_near, min=em.kRayEpsilon), t_far)
+
+
+class FilmSample(NamedTuple):
+  """A light-to-camera connection: the lens point, its normal, the unit
+  direction from the scene point to it, the NDC position, the importance
+  weight and solid-angle pdf, and whether it lands on the film."""
+  position: torch.Tensor   # (R,3)
+  normal: torch.Tensor     # (R,3)
+  direction: torch.Tensor  # (R,3)
+  uv: torch.Tensor         # (R,2)
+  weight: torch.Tensor     # (R,)
+  pdf_dir: torch.Tensor    # (R,)
+  valid: torch.Tensor      # (R,) bool
+
+
+def sample_film(camera, from_point: torch.Tensor, lens_rnd: torch.Tensor) -> FilmSample:
+  """Connect world points to the camera (light tracing, BDPT and VCM). The
+  lens arithmetic is the JAX package's; a pinhole (lens_radius 0) connects
+  to the camera position."""
+  sensor = em.sample_disk(lens_rnd) * camera.lens_radius
+  use_dof = (camera.lens_radius > em.kEpsilon) & (camera.focal_distance > em.kEpsilon)
+  sensor = torch.where(use_dof, sensor, 0.0)
+
+  position = camera.position + sensor[..., 0:1] * camera.side + sensor[..., 1:2] * camera.up
+  direction = position - from_point
+  normal = camera.direction
+  cos_t = -em.dot(direction, normal)
+  dist2 = em.dot(direction, direction)
+  dist = torch.sqrt(torch.clamp(dist2, min=1e-30))
+  direction = direction / dist[..., None]
+  cos_t = cos_t / dist
+
+  focal = torch.where(use_dof, camera.focal_distance, 1.0)
+  focus = position - direction * (focal / torch.clamp(cos_t, min=1e-6))[..., None]
+  # view_proj @ [focus, 1], each row summed in component order
+  m = camera.view_proj
+  proj = [focus[..., 0] * m[i, 0] + focus[..., 1] * m[i, 1] + focus[..., 2] * m[i, 2] + m[i, 3]
+          for i in range(4)]
+  w = proj[3]
+  w_safe = torch.where(w == 0, 1.0, w)
+  uv = torch.stack([proj[0] / w_safe, proj[1] / w_safe], dim=-1)
+
+  in_frustum = (w > 0.0) & (torch.abs(uv[..., 0]) <= 1.0) & (torch.abs(uv[..., 1]) <= 1.0)
+  valid = (cos_t > 0.0) & in_frustum
+
+  lens_area = torch.where(camera.lens_radius > em.kEpsilon,
+                          em.kPi * em.sqr(camera.lens_radius), 1.0)
+  pdf_area = 1.0 / lens_area
+  cos_c = torch.clamp(cos_t, min=1e-9)
+  pdf_dir = pdf_area * dist2 / cos_c
+  pdf_dir_out = 1.0 / (camera.area * lens_area * (cos_c * cos_c * cos_c))
+  importance = pdf_dir_out / cos_c
+  weight = importance / torch.clamp(pdf_dir, min=1e-30)
+  return FilmSample(
+      position=position.expand(from_point.shape), normal=normal.expand(from_point.shape),
+      direction=direction, uv=uv,
+      weight=torch.where(valid, weight, 0.0),
+      pdf_dir=torch.where(valid, pdf_dir, 0.0),
+      valid=valid)
+
+
+def film_pdf_out(camera, to_point: torch.Tensor) -> torch.Tensor:
+  """The camera's directional pdf toward each point (per unit image area)."""
+  w_i = em.normalize(to_point - camera.position)
+  cos_t = em.dot(w_i, camera.direction)
+  return 1.0 / torch.abs(camera.area * (cos_t * cos_t * cos_t))

@@ -2,7 +2,8 @@
 
 Counterpart of the area-emitter parts of `etx_tracer_tpu/render/emitters.py`
 (`sample_emitter_index`, `discrete_pdf`, `sample_emitter` with only the Area
-class, `area_radiance`), in RGB and spectral mode: a spectral lane reads the
+class, `area_radiance`, and `sample_emission`, a light path's start, with
+only the Area class), in RGB and spectral mode: a spectral lane reads the
 emitter's SPD (the blackbody light of the Cornell box) at its wavelength.
 Environment and directional emitters are a later slice. Record lookups
 index the packed tables (scene/packed.py).
@@ -18,8 +19,10 @@ from etx_tracer_tpu_torch.core import distribution as distlib
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.render import spectral as spx
 from etx_tracer_tpu_torch.scene import packed
+from etx_tracer_tpu_torch.scene.types import EmitterClass
 
 _COLLIMATION = packed.mat_column("emission_collimation")
+_EXT_MEDIUM = packed.mat_column("ext_medium")
 
 
 class EmitterSample(NamedTuple):
@@ -122,3 +125,66 @@ def area_radiance(scene, emitter_index, ray_origin, hit_pos, directly_visible, w
           torch.where(ok, pdf_area, 0.0),
           torch.where(ok, pdf_dir, 0.0),
           torch.where(ok, pdf_dir_out, 0.0))
+
+
+class EmissionSample(NamedTuple):
+  """A light path's origin and first direction."""
+  value: torch.Tensor        # (R,C)
+  origin: torch.Tensor       # (R,3)
+  normal: torch.Tensor       # (R,3)
+  direction: torch.Tensor    # (R,3) emitted direction
+  pdf_sample: torch.Tensor   # (R,)
+  pdf_area: torch.Tensor     # (R,)
+  pdf_dir: torch.Tensor      # (R,)
+  pdf_dir_out: torch.Tensor  # (R,)
+  is_delta: torch.Tensor     # (R,) bool
+  is_distant: torch.Tensor   # (R,) bool
+  triangle_index: torch.Tensor  # (R,) int32
+  medium_index: torch.Tensor  # (R,) int32 the emitting material's exterior medium
+  geo_n: torch.Tensor        # (R,3) the emitter triangle's geometric normal
+
+
+def check_area_emitters(scene) -> None:
+  """Raise NotImplementedError unless every emitter is an area emitter
+  (directional and environment emitters are ROADMAP Queue 1 item 6)."""
+  if bool((scene.em_table[:, 0] != EmitterClass.Area).any().item()):
+    raise NotImplementedError(
+        "directional and environment emitters: a later slice (ROADMAP Queue 1 item 6)")
+
+
+def sample_emission(scene, rnd_sel, rnd_pos, rnd_dir, wl=None,
+                    spectral: bool = False) -> EmissionSample:
+  """A light path's origin on an area emitter (power-CDF selection, a
+  uniform point on its triangle) and a cosine-power direction about the
+  shading normal; the path starts in the emitting material's exterior
+  medium. The scene must hold area emitters only (`check_area_emitters`)."""
+  emitter_index, _ = sample_emitter_index(scene, rnd_sel)
+  erows = packed.EmitterRows(scene.em_table[emitter_index])
+  prows = packed.ProfileRows(scene.prof_table[erows.profile])
+  tri = torch.clamp(erows.triangle, min=0)
+  trows = packed.TriRows(scene.tri_table[tri])
+  emission = spx.query_spd(scene, prows.emission_spec, wl, spectral)
+
+  bc = em.random_barycentric(rnd_pos)
+  origin = (scene.tri_v0[tri] + bc[..., 1:2] * scene.tri_e1[tri]
+            + bc[..., 2:3] * scene.tri_e2[tri])
+  w0, w1, w2 = bc[..., 0:1], bc[..., 1:2], bc[..., 2:3]
+  normal = em.normalize(trows.n0 * w0 + trows.n1 * w1 + trows.n2 * w2)
+  tan = em.normalize(trows.t0 * w0 + trows.t1 * w1 + trows.t2 * w2)
+  btn = em.normalize(trows.b0 * w0 + trows.b1 * w1 + trows.b2 * w2)
+  mrows = scene.mat_table[trows.mat]
+  ext_medium = mrows[:, _EXT_MEDIUM].to(torch.int32)
+  exponent = collimation_to_exponent(mrows[:, _COLLIMATION])
+  local = em.sample_cosine_distribution(rnd_dir, exponent)
+  direction = tan * local[..., 0:1] + btn * local[..., 1:2] + normal * local[..., 2:3]
+  pdf_dir = torch.clamp(em.dot(normal, direction), min=0.0) * em.kInvPi
+  pdf_area = 1.0 / torch.clamp(erows.triangle_area, min=1e-12)
+  is_area = erows.cls == EmitterClass.Area
+  return EmissionSample(
+      value=emission, origin=origin, normal=normal, direction=direction,
+      pdf_sample=discrete_pdf(scene, emitter_index), pdf_area=pdf_area, pdf_dir=pdf_dir,
+      pdf_dir_out=pdf_dir * pdf_area,
+      is_delta=torch.zeros_like(is_area), is_distant=~is_area,
+      triangle_index=erows.triangle,
+      medium_index=torch.where(is_area, ext_medium, -1),
+      geo_n=trows.geo_n)

@@ -131,6 +131,7 @@ class SceneBuilder:
     self.max_path_length = 65535
     self.rr_start = 6
     self.radiance_clamp = 0.0
+    self.noise_threshold = 0.1
     self.spectral = False
 
     # spectrum 0 = black, 1 = white; default IORs vacuum 1.0, dielectric 1.5
@@ -350,7 +351,7 @@ class SceneBuilder:
         subsurface_classes=tuple(sorted(
             {m.subsurface_cls for m in mats
              if m.subsurface_cls != st.SubsurfaceClass.Disabled})) or (1,),
-        has_radiance_clamp=self.radiance_clamp > 0.0)
+        has_radiance_clamp=self.radiance_clamp > 0.0, noise_threshold=self.noise_threshold)
     return arrays, config
 
   def build(self, device=None):
@@ -412,20 +413,39 @@ def _orthonormal_np(n):
 
 
 def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far, medium):
-  """Look-at pinhole camera, in numpy."""
+  """Look-at pinhole camera, in numpy (the JAX package's build, without a lens)."""
   f = _normalize(np.asarray(target) - np.asarray(origin))
   s = _normalize(np.cross(f, np.asarray(up, np.float32)))
   u = np.cross(s, f)
   w, h = film_size
   fov = np.deg2rad(fov_deg)
   cot = np.cos(0.5 * fov) / np.sin(0.5 * fov)
+  aspect = w / h
+  tan_half_fov = 1.0 / cot
+  view = np.array([
+      [s[0], s[1], s[2], -np.dot(s, origin)],
+      [u[0], u[1], u[2], -np.dot(u, origin)],
+      [-f[0], -f[1], -f[2], np.dot(f, origin)],
+      [0, 0, 0, 1],
+  ], np.float32)
+  zn, zf = clip_near, clip_far
+  proj = np.zeros((4, 4), np.float32)
+  proj[0, 0] = cot
+  proj[1, 1] = cot * aspect
+  proj[2, 2] = zf / (zn - zf)
+  proj[2, 3] = -(zf * zn) / (zf - zn)
+  proj[3, 2] = -1.0
   return {
       "camera.position": np.asarray(origin, np.float32),
       "camera.direction": f.astype(np.float32),
       "camera.side": s.astype(np.float32),
       "camera.up": u.astype(np.float32),
-      "camera.tan_half_fov": np.float32(1.0 / cot),
-      "camera.aspect": np.float32(w / h),
+      "camera.view_proj": proj @ view,
+      "camera.tan_half_fov": np.float32(tan_half_fov),
+      "camera.aspect": np.float32(aspect),
+      "camera.area": np.float32((2.0 * tan_half_fov) * (2.0 * tan_half_fov / aspect)),
+      "camera.lens_radius": np.float32(0.0),
+      "camera.focal_distance": np.float32(0.0),
       "camera.clip_near": np.float32(clip_near),
       "camera.clip_far": np.float32(clip_far),
       "camera.medium_index": np.int32(medium),

@@ -46,13 +46,19 @@ class SubsurfaceClass:
 
 
 class Camera(NamedTuple):
-  """Pinhole camera; scalars are 0-d float32 tensors."""
+  """Pinhole camera; scalars are 0-d float32 tensors. `view_proj`, `area`,
+  `lens_radius` and `focal_distance` serve light-to-camera connections
+  (`render/camera.sample_film`); the scene bridge rejects a lens."""
   position: torch.Tensor      # (3,)
   direction: torch.Tensor     # (3,)
   side: torch.Tensor          # (3,)
   up: torch.Tensor            # (3,)
+  view_proj: torch.Tensor     # (4,4) row-major: clip = view_proj @ [p, 1]
   tan_half_fov: torch.Tensor  # ()
   aspect: torch.Tensor        # ()
+  area: torch.Tensor          # () image plane area at unit distance
+  lens_radius: torch.Tensor   # ()
+  focal_distance: torch.Tensor  # ()
   clip_near: torch.Tensor     # ()
   clip_far: torch.Tensor      # ()
   medium_index: torch.Tensor  # () int32 medium the camera sits in, -1: vacuum
@@ -146,6 +152,9 @@ class SceneConfig:
   subsurface_classes: tuple = (1,)
   # a radiance clamp is set (it turns deferred NEE off, as media do)
   has_radiance_clamp: bool = False
+  # adaptive sampling (`models/vcm.render_adaptive`): a pixel stops taking
+  # camera samples once its relative noise estimate falls below this
+  noise_threshold: float = 0.1
 
 
 def _to(x, device):

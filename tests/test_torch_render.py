@@ -464,6 +464,13 @@ for b in (volumetric.volumetric((8, 8)), volumetric.subsurface_cornell((8, 8))):
   assert config.has_media or config.has_subsurface
   img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
   assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from etx_tracer_tpu_torch.models import vcm
+scene, config = cornell.build_cornell_box(film_size=(8, 8), diffuse_only=True,
+                                          max_path_length=4).build(device="cpu")
+cloud, cloud_config = volumetric.volumetric((8, 8)).build(device="cpu")
+for sc, cfg, options in ((scene, config, vcm.VCMOptions()), (cloud, cloud_config, vcm.bdpt_options())):
+  img = film.result_image(vcm.render(sc, cfg, options, iterations=1, device="cpu"))
+  assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all()) and float(img.sum()) > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")
