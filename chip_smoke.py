@@ -123,7 +123,19 @@ Phases, one line each with its elapsed seconds:
      then K1 on camera step 1's closest-hit rays and on the first segment
      of its (R*V)-wide transmittance walk, captured, held bit-equal and
      timed as in phase 19;
-  21. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
+  21. main path, atmosphere: the JAX package's bench config 3
+     (`scene/atmosphere.atmosphere_scene`: a ground quad and an open box,
+     12 Diffuse triangles, under a Directional sun and an Environment sky
+     whose 256x128 image and 64x64 sun disk the host marches in numpy,
+     seen through a thin lens) at 512x512, spectral, max path length 8, a
+     2^18-lane pool, by `bench.py:_pt_mrays`'s protocol (8 warm iterations,
+     then 2 timed repetitions of 8): staging, warm-up and timed seconds,
+     rays, Mrays/s and K1/K2 launches; gated (finite, no negative
+     luminance, mean luminance within +-10% of the port's 128x128 CPU
+     render); profiled as phase 13's path is; then K1 and K2 on the
+     closest-hit and shadow rays of its bounce 2, captured, held bit-equal
+     to their plain versions and timed beside them and their bounds;
+  22. end to end: the golden 32x32 Cornell render (max path length 6, 4 spp)
      on the card against the same render on the CPU and the JAX package's
      recorded golden values; the 32x32 materials render (4 spp) on the card
      against the same render on the CPU; the 32x32 bigscene render (8 spp)
@@ -135,8 +147,11 @@ Phases, one line each with its elapsed seconds:
      VCM (without the per-cell cap) and light tracing on the diffuse Cornell
      box (4 iterations), caustics VCM (spectral, without the cap, 2
      iterations, through K3/K4) and volumetric BDPT (2 iterations, through
-     K1);
-  22. micro: the micro-benchmark entry
+     K1); and the image slice's: VCM (without the cap) and BDPT on the
+     environment-lit floor (4 iterations), a Cornell box through a lens
+     shaped by an image and bench config 3 (its staged sky, spectral) by
+     path tracing (4 spp each), all through K1/K2;
+  23. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
      against bigscene; `trace_brute`: K3/K4 against K9a/K9b on 2^18 random
@@ -171,7 +186,8 @@ from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film as film_mod
-from etx_tracer_tpu_torch.scene import bigscene, caustics, cornell, materials, volumetric
+from etx_tracer_tpu_torch.scene import atmosphere, bigscene, caustics, cornell, materials
+from etx_tracer_tpu_torch.scene import volumetric
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as scene_types
 
@@ -300,7 +316,27 @@ VCM_E2E = (
     ("caustics VCM spectral", lambda d: caustics.build_caustics_scene((32, 32)).build(device=d),
      _UNCAPPED, 2, ("intersect_brute2", "occluded_brute2")),
     ("volumetric BDPT", lambda d: volumetric.volumetric((32, 32)).build(device=d),
-     vcm.bdpt_options(), 2, ("intersect",)))
+     vcm.bdpt_options(), 2, ("intersect",)),
+    ("env-lit floor VCM", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
+     _UNCAPPED, 4, ("intersect", "occluded")),
+    ("env-lit floor BDPT", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
+     vcm.bdpt_options(), 4, ("intersect", "occluded")))
+# bench config 3 (the atmosphere: sun, sky, thin lens, spectral) at the
+# bench's film by `bench.py:_pt_mrays`'s protocol: ATMOSPHERE_ITERATIONS
+# warm iterations, then ATMOSPHERE_REPS timed repetitions of as many
+ATMOSPHERE_SIZE = (512, 512)
+ATMOSPHERE_ITERATIONS = 8
+ATMOSPHERE_REPS = 2
+# its mean luminance after the last repetition must lie in this range: the
+# port's CPU render at 128x128, 8 spp, 0.2546339 (the JAX package's
+# 0.2546315; at 64x64 both 0.2533538, so the mean has settled; `python -m
+# tests.atmosphere_reference_means`), +-10%
+ATMOSPHERE_MEAN = (0.22917, 0.28010)
+# the 32x32 card-vs-CPU path-traced renders of the image slice besides the
+# atmosphere's: (label, builder, spp)
+IMAGE_E2E = (
+    ("DOF Cornell with a lens image", lambda d: cornell.build_dof_cornell_box(
+        (32, 32), diffuse_only=True, max_path_length=6).build(device=d), 4),)
 # the 32x32 card-vs-CPU renders of the media slice: (label, builder, spp)
 MEDIA_E2E = (
     ("volumetric", lambda: volumetric.volumetric((32, 32)), 4),
@@ -1475,6 +1511,75 @@ def captured_segment_phase(scene, config, dev):
                        "segment", "intersect", (list(scene[:3]), None), rays)
 
 
+def main_path_atmosphere(dev):
+  """Bench config 3 through `render_samples_static` by `_pt_mrays`'s
+  protocol: staged on the host (the sky and the sun marched in numpy),
+  then ATMOSPHERE_ITERATIONS warm iterations and ATMOSPHERE_REPS timed
+  repetitions of as many, the launch counts set to 0 before the warm-up
+  and read after the last repetition. Every trace goes to K1/K2 (12
+  triangles). Gates the image: finite, no negative luminance, mean
+  luminance inside ATMOSPHERE_MEAN. Returns ((scene, config), the staged
+  builder, counts)."""
+  t0 = time.perf_counter()
+  builder = atmosphere.atmosphere_scene(ATMOSPHERE_SIZE)
+  staged = time.perf_counter() - t0
+  scene, config = builder.build(device=dev)
+  torch.cuda.synchronize()
+  built = time.perf_counter() - t0 - staged
+  check(config.spectral and config.material_classes == (0,) and config.emitter_classes == (1, 2)
+        and config.num_env_emitters == 2 and config.max_path_length == 8
+        and scene.tri_v0.shape[0] == atmosphere.NUM_TRIANGLES
+        and path_tracing.uses_deferred_nee(config), f"atmosphere config {config}")
+  n, pool = ATMOSPHERE_ITERATIONS, 1 << 18
+  reset_counts()
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  sums, rays = path_tracing.render_samples_static(scene, config, 0, n, pool_size=pool, device=dev)
+  int(rays.item())
+  warm = time.perf_counter() - t1
+  t1 = time.perf_counter()
+  total = 0
+  for rep in range(1, 1 + ATMOSPHERE_REPS):
+    sums, rays = path_tracing.render_samples_static(scene, config, rep, n, pool_size=pool,
+                                                    device=dev)
+    total += int(rays.item())
+  seconds = time.perf_counter() - t1
+  counts = read_counts()
+  img = film_mod.result_image(path_tracing.finalize_film(sums, n, config.film_width)).cpu().numpy()
+  say("main", f"atmosphere {ATMOSPHERE_SIZE[0]}x{ATMOSPHERE_SIZE[1]} spectral mpl 8 pool 2^18: "
+      f"staged in {staged:.2f} s (sky {config.num_env_emitters} distant emitters, "
+      f"bank {tuple(scene.images.pixels.shape)}), frozen on the card in {built:.2f} s; warm-up "
+      f"{n} spp {warm:.3f} s; {ATMOSPHERE_REPS} x {n} spp {seconds:.3f} s, {total} rays, "
+      f"{total / seconds / 1e6:.3f} Mrays/s; launches {counts}")
+  check(img.shape == (config.film_height, config.film_width, 3), f"image shape {img.shape}")
+  check(bool(np.isfinite(img).all()), "atmosphere: image has non-finite values")
+  y = img @ spectrum.RGB_TO_XYZ[1].astype(np.float64)
+  check(float(y.min()) >= -1e-5 * max(1.0, float(img.max())),
+        f"atmosphere: negative luminance {y.min()}")
+  lo, hi = ATMOSPHERE_MEAN
+  check(lo <= float(y.mean()) <= hi,
+        f"atmosphere: mean luminance {float(y.mean())} outside [{lo}, {hi}]")
+  negative = float((img < 0.0).any(axis=-1).mean())
+  say("main", f"atmosphere image mean {float(img.mean()):.5f}, mean luminance "
+      f"{float(y.mean()):.5f}, negative-channel pixels {negative:.4f}")
+  for key in ("intersect", "occluded"):
+    check(counts[key] > 0, f"the atmosphere main path never launched the {key} kernel")
+  others = {k: c for k, c in counts.items() if c and k not in ("intersect", "occluded")}
+  check(not others, f"the atmosphere main path launched {others}")
+  return (scene, config), builder, counts
+
+
+def captured_atmosphere(scene, config, dev):
+  """K1 and K2 on the closest-hit and shadow rays of the atmosphere path's
+  bounce 2, held bit-equal to their plain versions and timed beside their
+  plain versions and bounds. Returns {kernel: row}."""
+  closest, shadow = capture_bounce(scene, config, dev, CAPTURE_BOUNCE)
+  geometry = (list(scene[:3]), None)
+  return {name: hold_captured(f"the atmosphere main path's bounce {CAPTURE_BOUNCE}", name,
+                              geometry, rays)
+          for name, rays in (("intersect", closest), ("occluded", shadow))}
+
+
 def render_small(build, dev_name: str, iterations: int, options=None):
   """A small render through `path_tracing.render`, or with `options`
   through `vcm.render`."""
@@ -1506,8 +1611,9 @@ def card_vs_cpu(label, build, iterations, options=None):
   return card
 
 
-def end_to_end():
-  """The 32x32 renders on the card against the same renders on the CPU."""
+def end_to_end(atmosphere_32):
+  """The 32x32 renders on the card against the same renders on the CPU
+  (`atmosphere_32`: bench config 3's staged builder at 32x32)."""
   card = card_vs_cpu("cornell 32x32 golden config", lambda d: cornell_scene((32, 32), 6, d), 4)
   mean = card.mean(axis=(0, 1))
   total = float(card.sum())
@@ -1532,6 +1638,14 @@ def end_to_end():
     check(counts[key] > 0, f"the bigscene render without fat rows never launched the {key} kernel")
   check(counts["intersect_bvh_fat"] == 0 and counts["occluded_bvh_fat"] == 0,
         "the bigscene render without fat rows launched a fat-row kernel")
+  for label, build, spp in IMAGE_E2E + ((
+      "atmosphere spectral", lambda d: atmosphere_32.build(device=d), 4),):
+    reset_counts()
+    card_vs_cpu(f"{label} 32x32 {spp} spp", build, spp)
+    counts = read_counts()
+    say("e2e", f"{label}: launches {counts}")
+    for key in ("intersect", "occluded"):
+      check(counts[key] > 0, f"the {label} 32x32 render never launched the {key} kernel")
   for label, make, spp in MEDIA_E2E:
     reset_counts()
     card_vs_cpu(f"{label} 32x32 {spp} spp", lambda d: make().build(device=d), spp)
@@ -1747,7 +1861,13 @@ def main() -> int:
   rows_vbdpt = captured_vcm_phase("volumetric BDPT", *volumetric_256, vcm.bdpt_options(),
                                   ("intersect", "intersect"), dev)
   del volumetric_256
-  end_to_end()
+  atmosphere_512, atmosphere_builder, counts_atm = main_path_atmosphere(dev)
+  profile_step_mix("atmosphere 512x512", *atmosphere_512, dev)
+  rows_atm = captured_atmosphere(*atmosphere_512, dev)
+  del atmosphere_512
+  # the staged sky and sun serve the 32x32 render too
+  atmosphere_builder.film_size = (32, 32)
+  end_to_end(atmosphere_builder)
   counts_micro = micro_phase(dev)
 
   launches = {"intersect": counts["intersect"], "occluded": counts["occluded"],
@@ -1779,6 +1899,9 @@ def main() -> int:
                                                   "occluded_brute2"))
       + f" (iterations 0-{VCM_TIMED} each); on their camera step {VCM_CAPTURE_STEP}: caustics "
       f"VCM {rows_cvcm}, volumetric BDPT {rows_vbdpt}")
+  say("kernels", f"K1/K2 launches on the atmosphere path {counts_atm['intersect']} / "
+      f"{counts_atm['occluded']} ({ATMOSPHERE_ITERATIONS} warm + {ATMOSPHERE_REPS} x "
+      f"{ATMOSPHERE_ITERATIONS} spp); on its bounce {CAPTURE_BOUNCE}: {rows_atm}")
   print(card_line, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   # one card: the run uses cuda:0 and nothing else

@@ -161,3 +161,59 @@ def power_heuristic(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
   denom = f2 + g2
   return torch.where(denom > 0.0, saturate(f2 / torch.clamp(denom, min=1e-37)),
                      torch.zeros_like(denom))
+
+
+def to_spherical(d: torch.Tensor):
+  """(phi, theta, r) of direction vectors: phi = atan2(z, x), theta the
+  elevation asin(y / r)."""
+  r = length(d)
+  phi = torch.atan2(d[..., 2], d[..., 0])
+  theta = torch.asin(torch.clamp(d[..., 1] / torch.clamp(r, min=1e-30), -1.0, 1.0))
+  return phi, theta, r
+
+
+def from_spherical(phi: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+  cos_t = torch.cos(theta)
+  return torch.stack([torch.cos(phi) * cos_t, torch.sin(theta), torch.sin(phi) * cos_t], dim=-1)
+
+
+def _mirror_u(u: torch.Tensor, u_scale) -> torch.Tensor:
+  """1 - u where the map's u scale is negative (a tensor of lanes or a
+  number)."""
+  if isinstance(u_scale, torch.Tensor):
+    return torch.where(u_scale < 0.0, 1.0 - u, u)
+  return 1.0 - u if u_scale < 0.0 else u
+
+
+def uv_to_direction(uv: torch.Tensor, offset_u=0.0, u_scale=1.0) -> torch.Tensor:
+  """Equirectangular uv -> direction; `offset_u` shifts and a negative
+  `u_scale` mirrors the map in u."""
+  u = _mirror_u(uv[..., 0], u_scale)
+  u = u - offset_u
+  u = u - torch.floor(u)
+  phi = (u * 2.0 - 1.0) * kPi
+  theta = (0.5 - uv[..., 1]) * kPi
+  return from_spherical(phi, theta)
+
+
+def direction_to_uv(d: torch.Tensor, offset_u=0.0, u_scale=1.0) -> torch.Tensor:
+  """Direction -> equirectangular uv, the inverse of `uv_to_direction`."""
+  phi, theta, _ = to_spherical(d)
+  u = _mirror_u((phi / kPi + 1.0) / 2.0, u_scale)
+  u = u + offset_u
+  u = u - torch.floor(u)
+  v = 0.5 - theta / kPi
+  return torch.stack([u, v], dim=-1)
+
+
+def distance_to_sphere(o: torch.Tensor, d: torch.Tensor, center: torch.Tensor,
+                       radius) -> torch.Tensor:
+  """Positive distance along each ray to the sphere, 0 on a miss."""
+  e = o - center
+  b = dot(d, e)
+  disc = b * b - dot(e, e) + radius * radius
+  s = torch.sqrt(torch.clamp(disc, min=0.0))
+  a0 = -b - s
+  a1 = -b + s
+  t = torch.where(a0 < 0.0, torch.where(a1 < 0.0, 0.0, a1), a0)
+  return torch.where(disc < 0.0, 0.0, t)

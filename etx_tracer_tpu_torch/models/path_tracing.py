@@ -15,9 +15,13 @@ interfaces switching the medium) with media, else through the any-hit
 kernel; there are no pending rays and no drain.
 
 The port renders the Diffuse, Conductor, Dielectric, Thinfilm and Boundary
-classes (`config.material_classes`) lit by area emitters, in RGB or
-spectral mode (one sampled wavelength per lane; a bounce evaluates the
-spectrum bank at each lane's wavelength once), with homogeneous and
+classes (`config.material_classes`) lit by area emitters and distant ones
+(environment maps and directional sun disks: NEE samples every class of
+`config.emitter_classes`, a missed ray gathers the environment through
+`emitters.env_contribution`), seen through a pinhole, a thin lens or an
+equirectangular camera, in RGB or spectral mode (one sampled wavelength
+per lane; a bounce evaluates the spectrum bank at each lane's wavelength
+once), with homogeneous and
 heterogeneous media (free-path sampling, NEE from medium points with HG
 phase MIS, `render/media.py`), subsurface scattering (random walk and
 Christensen-Burley, `render/subsurface.py`) and a radiance clamp on each
@@ -90,11 +94,13 @@ class PTState(NamedTuple):
   res_valid: torch.Tensor    # (R,) bool
 
 
-def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) -> PTState:
+def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int,
+                      lens: camera_mod.Lens | None = None) -> PTState:
   """Per-lane payload for sample ids; id s is pixel s % (W*H) at iteration
   s // (W*H). Lanes with s >= end_sample start dead. The RNG is seeded with
   tea(pixel, iteration) and draws, in order: the wavelength (unused in RGB
-  mode), the pixel jitter, the lens sample (unused by a pinhole)."""
+  mode), the pixel jitter, the lens sample (unused by a pinhole). `lens`
+  (`camera.lens_of`) is read from the scene when not given."""
   w, h = config.film_width, config.film_height
   npix = w * h
   r = sample_ids.shape[0]
@@ -112,8 +118,11 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int) 
   state, jit_rnd = rng.next_2d(state)
   jitter = camera_mod.pixel_jitter(config.pixel_filter, jit_rnd, iteration)
   uv = camera_mod.film_uv(px, py, w, h, jitter)
-  state, _ = rng.next_2d(state)
-  rays = camera_mod.generate_ray(scene.camera, uv)
+  state, lens_rnd = rng.next_2d(state)
+  if lens is None:
+    lens = camera_mod.lens_of(scene.camera)
+  rays = camera_mod.generate_ray(scene.camera, uv, lens_rnd, lens, scene.images,
+                                 config.equirectangular)
   c = spx.channels(config.spectral)
 
   def zeros(*shape, dtype=torch.float32):
@@ -285,7 +294,7 @@ def pt_step(scene, config, state: PTState) -> PTState:
     rng_state, m_rnd_em = rng.next_2d(rng_state)
     m_em_idx, _ = emitters_mod.sample_emitter_index(scene, m_rnd_sel)
     m_esmp = emitters_mod.sample_emitter(scene, m_em_idx, m_rnd_em, msample.pos, state.wl,
-                                         spectral)
+                                         spectral, config.emitter_classes)
     m_tr, rng_state = _trace_transmittance(scene, rng_state, state.medium, msample.pos,
                                            m_esmp.origin, state.wl, spectral)
     phase = media_mod.phase_hg(state.ray_d, m_esmp.direction, mv.phase_g)
@@ -305,6 +314,16 @@ def pt_step(scene, config, state: PTState) -> PTState:
 
     # lanes with a medium event skip the surface this step
     found = found & ~medium_event
+
+  # ---------------------------------------------------------------- miss
+  if config.num_env_emitters > 0:
+    env = emitters_mod.env_contribution(scene, state.ray_d, state.wl, state.path_length == 1,
+                                        state.mis_flag, state.bsdf_pdf,
+                                        config.num_env_emitters, spectral)
+    miss = state.alive & ~hit.found
+    if config.has_media:
+      miss = miss & ~medium_event
+    accumulated = accumulated + torch.where(miss[..., None], throughput * env, 0.0)
 
   # ----------------------------------------------------------------- hit
   pos, nrm, tan, btn, uv, _, _, trows = _interpolate_hit(scene, hit)
@@ -374,7 +393,8 @@ def pt_step(scene, config, state: PTState) -> PTState:
   rng_state, rnd_em = rng.next_2d(rng_state)
   can_nee = surface & (state.path_length + 1 <= config.max_path_length)
   em_idx, _ = emitters_mod.sample_emitter_index(scene, rnd_sel)
-  esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos, state.wl, spectral)
+  esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos, state.wl, spectral,
+                                     config.emitter_classes)
   bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, spectral, classes)
   if config.has_subsurface:
     # a subsurface exit shades as white diffuse, times the gather's weight
@@ -593,6 +613,7 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
   slot_ids = torch.arange(s_slots, device=device)[None, :]
   end = 2 ** 30
   deferred = uses_deferred_nee(config)
+  lens = camera_mod.lens_of(scene.camera)
 
   def phase(state, counter, lanes, pend_meta, film_rows, threshold: int):
     """Run the pool at width lanes.shape[0] until alive <= threshold (or,
@@ -625,7 +646,7 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
       counter = counter + died.to(counter.dtype)
       fresh = make_lane_payload(scene, config,
-                                ids_for(torch.clamp(counter, max=per_lane - 1)), end)
+                                ids_for(torch.clamp(counter, max=per_lane - 1)), end, lens)
       regen = died & (counter < per_lane)
       merged = _pick(regen, fresh, new_state)
       # the pending shadow ray survives regeneration: it belongs to the
@@ -664,7 +685,7 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
   lane0 = torch.arange(p, dtype=torch.int64, device=device)
   init_it = first_iteration + (lane0 // p_base) * n_lane
-  state = make_lane_payload(scene, config, init_it * npix + (lane0 % p_base), end)
+  state = make_lane_payload(scene, config, init_it * npix + (lane0 % p_base), end, lens)
   counter = torch.zeros(p, dtype=torch.int64, device=device)
   lanes = lane0
   pend_meta = torch.zeros((p, 2), device=device)

@@ -29,11 +29,13 @@ path share one wavelength), the Diffuse, Conductor, Dielectric, Thinfilm and
 Boundary classes, media (free-path sampling on both walks, phase-function
 connections, transmittance through Boundary interfaces) and subsurface
 scattering (camera-side connections, NEE and merging at the exit), lit by
-area emitters. Environment and directional emitters raise
-NotImplementedError (ROADMAP Queue 1 item 6). The JAX package's sharding
-parameters (`path_offset`, `n_valid`, `splat_shape`, `pixel_offset`,
-`full_height`) are left out (ROADMAP Queue 1 item 11). A radiance clamp
-does not apply to VCM in the JAX package either.
+area and distant emitters (light paths start on the bounding sphere from
+an environment or a directional emitter; camera paths that miss gather the
+environment), through a pinhole, a thin lens or an equirectangular
+camera. The JAX package's sharding parameters (`path_offset`, `n_valid`,
+`splat_shape`, `pixel_offset`, `full_height`) are left out (ROADMAP Queue
+1 item 11). A radiance clamp does not apply to VCM in the JAX package
+either.
 
 PyTorch runs eagerly: every JAX `while_loop` is a Python loop that reads
 its condition on the host once an iteration, over the JAX loop's widths and
@@ -975,6 +977,16 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
   sd = ShadingData(w_i=state.ray_d, nrm=nrm, tan=tan, btn=btn, geo_n=trows.geo_n, tex=uvt,
                    wl=state.wl, medium=state.medium, mat=mat)
 
+  # --- a miss gathers the environment (a missed lane's d_vcm is the one it
+  # came with: `_meet` updates hit lanes only) ---
+  if config.num_env_emitters > 0:
+    env = emitters_mod.env_contribution(
+        sc, state.ray_d, state.wl, state.path_depth <= 1,
+        torch.ones(r, dtype=torch.bool, device=dev), 1.0 / torch.clamp(state.d_vcm, min=1e-20),
+        config.num_env_emitters, spectral)
+    miss = state.alive & ~v.hit.found
+    gathered = gathered + torch.where(miss[..., None], state.throughput * env, 0.0)
+
   # --- a direct emitter hit ---
   if options.direct_hit:
     emitter_idx = torch.where(upd, trows.emitter, -1)
@@ -1041,7 +1053,8 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
     rng_state, rnd_em = rng.next_2d(rng_state)
     em_idx, _ = emitters_mod.sample_emitter_index(sc, rnd_sel)
     nee_pos = torch.where(me3, msample.pos, pos) if config.has_media else pos
-    esmp = emitters_mod.sample_emitter(sc, em_idx, rnd_em, nee_pos, state.wl, spectral)
+    esmp = emitters_mod.sample_emitter(sc, em_idx, rnd_em, nee_pos, state.wl, spectral,
+                                       config.emitter_classes)
     w_o = esmp.direction
     b_val, b_pdf = bsdf_dispatch.evaluate(sc, sd_eval, w_o, spectral, eval_classes)
     rev = b_pdf if options.fast_mis else bsdf_dispatch.reverse_pdf(sc, sd_eval, w_o, spectral,
@@ -1165,8 +1178,9 @@ def camera_pass(scene, config, options: VCMOptions, iteration: int, verts: Light
   rng_state, jit_rnd = rng.next_2d(rng_state)
   jitter = camera_mod.pixel_jitter(config.pixel_filter, jit_rnd, it_t)
   uv = camera_mod.film_uv(idx % w, idx // w, w, h, jitter)
-  rng_state, _ = rng.next_2d(rng_state)  # the lens sample (a pinhole takes none)
-  rays = camera_mod.generate_ray(scene.camera, uv)
+  rng_state, lens_rnd = rng.next_2d(rng_state)
+  rays = camera_mod.generate_ray(scene.camera, uv, lens_rnd, camera_mod.lens_of(scene.camera),
+                                 scene.images, config.equirectangular)
   film_pdf = camera_mod.film_pdf_out(scene.camera, rays.o + rays.d)
   state = VCMState(
       ray_o=rays.o, ray_d=rays.d,
@@ -1240,7 +1254,6 @@ def radius_schedule(scene, config, options: VCMOptions, iteration: int):
 def _iteration(scene, config, options: VCMOptions, iteration: int, active=None):
   """One iteration's light pass, grid and camera pass: (the (H,W,3) camera
   RGB, the splat image, the rays traced)."""
-  emitters_mod.check_area_emitters(scene)
   w, h = config.film_width, config.film_height
   radius, vc_weight, vm_weight, vm_norm = (float(x) for x in radius_schedule(
       scene, config, options, iteration))

@@ -1,8 +1,12 @@
 """Camera ray generation and film sampling.
 
-Counterpart of `etx_tracer_tpu/render/camera.py` for the pinhole camera:
-ray generation, the pixel filter, and the light-to-camera connection of
-the bidirectional integrators (`sample_film`, `film_pdf_out`).
+Counterpart of `etx_tracer_tpu/render/camera.py`: ray generation for a
+pinhole, a thin lens (depth of field, its aperture a disk or shaped by an
+image of the bank) and an equirectangular camera, the pixel filter, and
+the light-to-camera connection of the bidirectional integrators
+(`sample_film`, `film_pdf_out`). Whether the lens is on and which image
+shapes it are read on the host once per render (`lens_of`), so a camera
+without a lens computes no lens arithmetic.
 Pixel convention: pixel (px, py) with py=0 at the BOTTOM row of the film
 arrays (NDC v = -1).
 """
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from etx_tracer_tpu_torch.core import math as em
+from etx_tracer_tpu_torch.render import images as images_mod
 
 # Radial Blackman-Harris pixel filter: the inverse radial CDF as a piecewise
 # polynomial fit (the JAX package's constants).
@@ -75,13 +80,46 @@ class RayBundle(NamedTuple):
   t_max: torch.Tensor  # (R,)
 
 
-def generate_ray(camera, uv: torch.Tensor) -> RayBundle:
-  """Pinhole camera ray for NDC uv (depth of field is a later slice)."""
+class Lens(NamedTuple):
+  """What ray generation needs to know of the lens on the host."""
+  dof: bool   # lens_radius and focal_distance above kEpsilon
+  image: int  # the bank image that shapes the aperture, -1: a disk
+
+
+def lens_of(camera) -> Lens:
+  """The camera's lens, read from the card (two host reads)."""
+  dof = (camera.lens_radius > em.kEpsilon) & (camera.focal_distance > em.kEpsilon)
+  return Lens(bool(dof.item()), int(camera.lens_image.item()))
+
+
+def generate_ray(camera, uv: torch.Tensor, lens_rnd=None, lens: Lens | None = None,
+                 bank=None, equirectangular: bool = False) -> RayBundle:
+  """Camera ray for NDC uv. `equirectangular`: uv in [-1, 1]^2 is
+  longitude x latitude from the camera position. With `lens.dof`, the ray
+  leaves a point of the lens (a disk sample of `lens_rnd`, or the
+  importance sample of `bank`'s image `lens.image` mapped to [-1, 1]^2)
+  scaled by the lens radius, toward the pinhole ray's point at the focal
+  distance. A `lens` of None is a pinhole."""
   r = uv.shape[0]
   origin = camera.position.expand(r, 3)
+  if equirectangular:
+    d = em.from_spherical(uv[..., 0] * em.kPi, uv[..., 1] * em.kHalfPi)
+    return RayBundle(origin, d, torch.full((r,), em.kRayEpsilon, device=uv.device),
+                     torch.full((r,), em.kMaxFloat, device=uv.device))
   s = uv[..., 0:1] * camera.side
   u = uv[..., 1:2] * camera.up / camera.aspect
   w_o = em.normalize(camera.tan_half_fov * (s + u) + camera.direction)
+  if lens is not None and lens.dof:
+    if lens.image >= 0:
+      img = torch.full((r,), lens.image, dtype=torch.int64, device=uv.device)
+      sensor = images_mod.sample(bank, img, lens_rnd)[0] * 2.0 - 1.0
+    else:
+      sensor = em.sample_disk(lens_rnd)
+    sensor = sensor * camera.lens_radius
+    origin = origin + camera.side * sensor[..., 0:1] + camera.up * sensor[..., 1:2]
+    focal_t = camera.focal_distance / torch.clamp(em.dot(w_o, camera.direction), min=1e-6)
+    focus_p = camera.position + focal_t[..., None] * w_o
+    w_o = em.normalize(focus_p - origin)
   cos_t = em.dot(w_o, camera.direction)
   t_near = torch.where(camera.clip_near > 0.0, camera.clip_near / cos_t, em.kRayEpsilon)
   t_far = torch.where(camera.clip_far > 0.0, camera.clip_far / cos_t, em.kMaxFloat)

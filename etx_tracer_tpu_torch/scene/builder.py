@@ -4,17 +4,19 @@ Counterpart of `etx_tracer_tpu/scene/builder.py` for what the port renders:
 Diffuse, Conductor, Dielectric, Thinfilm and Boundary materials, subsurface
 scattering (random walk, Christensen-Burley), homogeneous and heterogeneous
 media, a radiance clamp, RGB or spectral rendering, triangle meshes (with
-per-vertex normals when given), area emitters and a pinhole camera (in a
-medium or not). Staging and commit-time work (vertex normals, tangent
-frames, per-triangle area-emitter instancing, the power-based emitter
-distribution, the camera, the spectrum bank, the medium table) run in
-numpy exactly as in the JAX package, so both packages freeze bit-identical
-tables, and the numpy BVH builder (`ops/bvh_build.py`, the JAX package's
-numpy builder) builds every scene's tree, as the JAX builder does.
-`build(device)` adds the BVH kernels' tables and moves them onto the
-device. The other material classes, diffuse variations, alpha, textures and
-distant emitters raise NotImplementedError naming the slice that brings
-them.
+per-vertex normals when given), area emitters, distant emitters
+(environment maps and directional sun disks), an image bank, and a camera
+that is a pinhole, a thin lens (its aperture optionally shaped by an
+image) or equirectangular, in a medium or not. Staging and commit-time
+work (vertex normals, tangent frames, distant and per-triangle area-emitter
+instancing, the power-based emitter distribution, the camera, the spectrum
+bank, the image bank's alias tables, the medium table) run in numpy exactly
+as in the JAX package, so both packages freeze bit-identical tables, and
+the numpy BVH builder (`ops/bvh_build.py`, the JAX package's numpy builder)
+builds every scene's tree, as the JAX builder does. `build(device)` adds
+the BVH kernels' tables and moves them onto the device. The other material
+classes, diffuse variations, alpha and material textures raise
+NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.core import distribution as distlib
 from etx_tracer_tpu_torch.core import spectrum as sp
 from etx_tracer_tpu_torch.ops import bvh_build
+from etx_tracer_tpu_torch.render import images as images_mod
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
 
@@ -89,6 +92,18 @@ class MediumDesc:
   explicit_connections: bool = True
 
 
+@dataclasses.dataclass
+class EmitterProfileDesc:
+  """A distant emitter: an environment (its radiance an image of the bank
+  times `emission_spec`, or the spectrum alone) or a directional disk of
+  `angular_size` radians about `direction`."""
+  cls: int = st.EmitterClass.Environment
+  emission_spec: int = kInvalid
+  emission_img: int = kInvalid
+  direction: tuple = (0.0, 1.0, 0.0)
+  angular_size: float = 0.0
+
+
 RENDERED_CLASSES = (st.MaterialClass.Diffuse, st.MaterialClass.Conductor,
                     st.MaterialClass.Dielectric, st.MaterialClass.Thinfilm,
                     st.MaterialClass.Boundary)
@@ -104,7 +119,8 @@ def _check_material(m: MaterialDesc):
         f"material {m.name!r}: diffuse variations and alpha are later slices")
   if any(i != kInvalid for i in (m.reflectance_img, m.scattering_img, m.emission_img,
                                  m.roughness_img, m.normal_img, m.thinfilm_img)):
-    raise NotImplementedError(f"material {m.name!r}: textures are a later slice")
+    raise NotImplementedError(
+        f"material {m.name!r}: material textures are a later slice (ROADMAP Queue 1 item 7)")
 
 
 class SceneBuilder:
@@ -119,14 +135,20 @@ class SceneBuilder:
     self.spectra: list[sp.SpectralDistribution] = []
     self.mediums: list[MediumDesc] = []
     self.medium_names: dict[str, int] = {}
+    self.distant_emitters: list[EmitterProfileDesc] = []
+    self.images: list[dict] = []
     self.camera_origin = np.array([5.0, 5.0, 5.0], np.float32)
     self.camera_target = np.zeros(3, np.float32)
     self.camera_up = np.array([0.0, 1.0, 0.0], np.float32)
     self.camera_fov = 26.99
     self.film_size = (1280, 720)
+    self.lens_radius = 0.0
+    self.focal_distance = 0.0
     self.clip_near = 1.0 / 256.0
     self.clip_far = 1024.0
     self.camera_medium = kInvalid
+    self.camera_lens_image = kInvalid
+    self.camera_equirectangular = False
     self.samples = 256
     self.max_path_length = 65535
     self.rr_start = 6
@@ -167,6 +189,19 @@ class SceneBuilder:
       self.medium_names[desc.name] = len(self.mediums) - 1
     return len(self.mediums) - 1
 
+  def add_distant_emitter(self, desc: EmitterProfileDesc):
+    self.distant_emitters.append(desc)
+
+  def add_image(self, pixels: np.ndarray, build_cdf: bool = False,
+                offset=(0.0, 0.0), u_scale: float = 1.0, uniform: bool = False) -> int:
+    """Stage an (H, W, 4) float image; `build_cdf` gives it a sampling
+    distribution (an environment map, a lens shape). Returns its index."""
+    self.images.append({
+        "pixels": np.asarray(pixels, np.float32),
+        "build_cdf": build_cdf, "offset": offset,
+        "u_scale": u_scale, "uniform": uniform})
+    return len(self.images) - 1
+
   def add_mesh(self, positions, indices, material: int, normals=None, uvs=None):
     self.positions.append(np.asarray(positions, np.float32).reshape(-1, 3))
     self.indices.append(np.asarray(indices, np.int32).reshape(-1, 3))
@@ -174,13 +209,17 @@ class SceneBuilder:
     self.uvs.append(None if uvs is None else np.asarray(uvs, np.float32).reshape(-1, 2))
     self.mesh_material.append(material)
 
-  def set_camera(self, origin, target, up, fov, film_size, clip_near=None, clip_far=None):
-    """Pinhole camera (depth of field is a later slice)."""
+  def set_camera(self, origin, target, up, fov, film_size, lens_radius=0.0,
+                 focal_distance=0.0, clip_near=None, clip_far=None):
+    """Look-at camera; a lens radius and focal distance above kEpsilon give
+    depth of field."""
     self.camera_origin = np.asarray(origin, np.float32)
     self.camera_target = np.asarray(target, np.float32)
     self.camera_up = np.asarray(up, np.float32)
     self.camera_fov = float(fov)
     self.film_size = (int(film_size[0]), int(film_size[1]))
+    self.lens_radius = float(lens_radius)
+    self.focal_distance = float(focal_distance)
     if clip_near is not None:
       self.clip_near = float(clip_near)
     if clip_far is not None:
@@ -231,10 +270,22 @@ class SceneBuilder:
     radius = float(np.linalg.norm(pos - center, axis=-1).max())
     radius = max(radius, 1e-3)
 
-    # ---- area emitter instancing: one instance per emissive triangle ----
+    # ---- emitter instancing: the distant emitters first (weight: their
+    # spectrum's luminance over the bounding sphere's disk), then one
+    # instance per emissive triangle ----
     mat_emitter_profile: dict[int, int] = {}
-    profiles: list[int] = []  # emission spectrum of each area profile
-    inst_profile, inst_tri, inst_area, weights = [], [], [], []
+    profiles: list[EmitterProfileDesc] = list(self.distant_emitters)
+    inst_cls, inst_profile, inst_tri, inst_area = [], [], [], []
+    inst_spectrum_w, inst_additional_w = [], []
+    for pi, prof in enumerate(self.distant_emitters):
+      inst_cls.append(prof.cls)
+      inst_profile.append(pi)
+      inst_tri.append(kInvalid)
+      inst_area.append(0.0)
+      inst_spectrum_w.append(self.spectra[prof.emission_spec].luminance()
+                             if prof.emission_spec != kInvalid else 0.0)
+      inst_additional_w.append(np.pi * radius * radius)
+
     tri_emitter = np.full(num_t, kInvalid, np.int32)
     for t in range(num_t):
       m = self.materials[tri_mat[t]]
@@ -247,31 +298,46 @@ class SceneBuilder:
       mi = int(tri_mat[t])
       if mi not in mat_emitter_profile:
         mat_emitter_profile[mi] = len(profiles)
-        profiles.append(m.emission_spec)
-      tri_emitter[t] = len(inst_tri)
+        profiles.append(EmitterProfileDesc(cls=st.EmitterClass.Area,
+                                           emission_spec=m.emission_spec,
+                                           emission_img=m.emission_img))
+      tri_emitter[t] = len(inst_cls)
+      inst_cls.append(st.EmitterClass.Area)
       inst_profile.append(mat_emitter_profile[mi])
       inst_tri.append(t)
       inst_area.append(float(tri_area[t]))
-      weights.append(spectrum_weight * additional)
-    if not inst_tri:
-      raise NotImplementedError(
-          "a scene without area emitters needs distant emitters, a later slice")
-    weights = np.asarray(weights, np.float64)
+      inst_spectrum_w.append(spectrum_weight)
+      inst_additional_w.append(additional)
+
+    weights = np.asarray([sw * aw for sw, aw in zip(inst_spectrum_w, inst_additional_w)],
+                         np.float64)
+    if not inst_cls:
+      # no emitter at all: one Undefined instance of weight 0
+      weights = np.zeros(1)
+      inst_cls, inst_profile, inst_tri, inst_area = ([st.EmitterClass.Undefined], [0],
+                                                     [kInvalid], [0.0])
     pdf, cdf, total_w = distlib.build(weights)
-    inst_cls = np.full(len(inst_tri), st.EmitterClass.Area, np.int32)
+    env_idx = np.full(64, kInvalid, np.int32)
+    env_count = 0
+    for i, c in enumerate(inst_cls):
+      if c in (st.EmitterClass.Environment, st.EmitterClass.Directional) and weights[i] > 0.0:
+        env_idx[env_count] = i
+        env_count += 1
+    inst_cls = np.asarray(inst_cls, np.int32)
     inst_profile = np.asarray(inst_profile, np.int32)
     inst_tri = np.asarray(inst_tri, np.int32)
     inst_area = np.asarray(inst_area, np.float32)
     weights = weights.astype(np.float32)
 
-    num_p = len(profiles)
-    prof_cls = np.full(num_p, st.EmitterClass.Area, np.int32)
-    prof_spec = np.asarray(profiles, np.int32)
-    prof_img = np.full(num_p, kInvalid, np.int32)
-    prof_dir = np.tile(_normalize((0.0, 1.0, 0.0)), (num_p, 1)).astype(np.float32)
-    prof_ang = np.zeros(num_p, np.float32)
-    prof_disk = (2.0 * np.tan(prof_ang / 2.0)).astype(np.float32)
-    prof_cos = np.cos(prof_ang / 2.0).astype(np.float32)
+    if not profiles:
+      profiles = [EmitterProfileDesc(cls=st.EmitterClass.Undefined)]
+    prof_cls = np.asarray([p.cls for p in profiles], np.int32)
+    prof_spec = np.asarray([p.emission_spec for p in profiles], np.int32)
+    prof_img = np.asarray([p.emission_img for p in profiles], np.int32)
+    prof_dir = np.asarray([_normalize(p.direction) for p in profiles], np.float32)
+    prof_ang = np.asarray([p.angular_size for p in profiles], np.float32)
+    prof_disk = 2.0 * np.tan(prof_ang / 2.0)
+    prof_cos = np.cos(prof_ang / 2.0)
 
     # ---- materials, packed ----
     mats = self.materials if self.materials else [MaterialDesc()]
@@ -328,18 +394,21 @@ class SceneBuilder:
                                                  prof_ang, prof_disk, prof_cos),
         "emitters.pdf": pdf, "emitters.cdf": cdf,
         "emitters.total_weight": np.float32(total_w),
+        "emitters.env_indices": env_idx, "emitters.env_count": np.int32(env_count),
         "spec_values": np.stack([s.values for s in self.spectra]).astype(np.float32),
         "spec_rgb": np.stack([s.integrated_rgb() for s in self.spectra]).astype(np.float32),
         "bsphere_center": center.astype(np.float32),
         "bsphere_radius": np.float32(radius),
         "radiance_clamp": np.float32(self.radiance_clamp),
         **_build_mediums(self.mediums, self.spectra),
+        **{f"images.{k}": v for k, v in images_mod.build_bank(self.images).items()},
     }
     tree = bvh_build.build_bvh(v0, e1, e2)
     arrays.update({f"bvh.{k}": v for k, v in tree.items() if v is not None})
     arrays.update(_build_camera(self.camera_origin, self.camera_target, self.camera_up,
-                                self.camera_fov, self.film_size, self.clip_near,
-                                self.clip_far, self.camera_medium))
+                                self.camera_fov, self.film_size, self.lens_radius,
+                                self.focal_distance, self.clip_near, self.clip_far,
+                                self.camera_medium, self.camera_lens_image))
 
     config = st.SceneConfig(
         film_width=self.film_size[0], film_height=self.film_size[1],
@@ -351,7 +420,12 @@ class SceneBuilder:
         subsurface_classes=tuple(sorted(
             {m.subsurface_cls for m in mats
              if m.subsurface_cls != st.SubsurfaceClass.Disabled})) or (1,),
-        has_radiance_clamp=self.radiance_clamp > 0.0, noise_threshold=self.noise_threshold)
+        has_radiance_clamp=self.radiance_clamp > 0.0, noise_threshold=self.noise_threshold,
+        has_env_emitters=env_count > 0, num_env_emitters=env_count,
+        has_images=len(self.images) > 0,
+        emitter_classes=tuple(sorted({int(c) for c in inst_cls
+                                      if c != st.EmitterClass.Undefined})) or (0,),
+        equirectangular=self.camera_equirectangular)
     return arrays, config
 
   def build(self, device=None):
@@ -412,8 +486,9 @@ def _orthonormal_np(n):
   return a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-20)
 
 
-def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far, medium):
-  """Look-at pinhole camera, in numpy (the JAX package's build, without a lens)."""
+def _build_camera(origin, target, up, fov_deg, film_size, lens_radius, focal_distance,
+                  clip_near, clip_far, medium, lens_image):
+  """Look-at camera, in numpy (the JAX package's build)."""
   f = _normalize(np.asarray(target) - np.asarray(origin))
   s = _normalize(np.cross(f, np.asarray(up, np.float32)))
   u = np.cross(s, f)
@@ -444,11 +519,12 @@ def _build_camera(origin, target, up, fov_deg, film_size, clip_near, clip_far, m
       "camera.tan_half_fov": np.float32(tan_half_fov),
       "camera.aspect": np.float32(aspect),
       "camera.area": np.float32((2.0 * tan_half_fov) * (2.0 * tan_half_fov / aspect)),
-      "camera.lens_radius": np.float32(0.0),
-      "camera.focal_distance": np.float32(0.0),
+      "camera.lens_radius": np.float32(lens_radius),
+      "camera.focal_distance": np.float32(focal_distance),
       "camera.clip_near": np.float32(clip_near),
       "camera.clip_far": np.float32(clip_far),
       "camera.medium_index": np.int32(medium),
+      "camera.lens_image": np.int32(lens_image),
   }
 
 

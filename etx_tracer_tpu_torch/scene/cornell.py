@@ -4,9 +4,9 @@ Counterpart of `etx_tracer_tpu/scene/cornell.py`: the same canonical
 geometry (room x in [-1,1], y in [0,2], z in [-1,1], open towards the camera
 at +z; two boxes; a ceiling light), camera and materials, staged with the
 same numpy code so both packages freeze identical tables: 36 triangles and
-two emitter triangles, in RGB or spectral mode, with a diffuse or (the
-default, as in the JAX package) a smooth conductor tall box, in vacuum or
-filled with a homogeneous or heterogeneous fog.
+two emitter triangles (none without the light), in RGB or spectral mode,
+with a diffuse or (the default, as in the JAX package) a smooth conductor
+tall box, in vacuum or filled with a homogeneous or heterogeneous fog.
 """
 
 from __future__ import annotations
@@ -60,16 +60,13 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   (gz, gy, gx) density grid, makes it heterogeneous over the room's box
   instead (scattering 0.5 unless fog_scattering is set). Every material's
   exterior medium is then the fog. The specular boxes (a mirror) raise
-  NotImplementedError naming the slice that brings them.
+  NotImplementedError naming the slice that brings them. Without its light
+  (`with_light=False`) the box has no emitter of its own: add a distant one
+  before building, or it freezes a single emitter of weight 0.
   """
   if specular_boxes:
     raise NotImplementedError(
         "specular_boxes: the mirror box is the slice that brings the remaining BSDFs")
-  if not with_light:
-    raise NotImplementedError(
-        "with_light=False: a Cornell box without its light needs distant emitters, "
-        "the environment and atmosphere slice")
-
   b = SceneBuilder()
   b.samples = samples
   b.spectral = spectral
@@ -122,7 +119,8 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   # light: blackbody 2700K scaled 5.0, black diffuse base
   emission = b.add_spectrum(sp.SpectralDistribution.from_normalized_black_body(2700.0, 5.0))
   m_light = b.add_material(MaterialDesc(name="light", cls=st.MaterialClass.Diffuse,
-                                        scattering_spec=black, emission_spec=emission,
+                                        scattering_spec=black,
+                                        emission_spec=emission if with_light else -1,
                                         two_sided=True))
 
   if fog:
@@ -146,4 +144,30 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   b.set_camera(origin=(0.0, 1.0, 3.82), target=(0.0, 1.0, -6.18),
                up=(0.0, 1.0, 0.0), fov=39.597755335771296,
                film_size=film_size, clip_near=0.1, clip_far=100.0)
+  return b
+
+
+def aperture_image(n: int = 16, blades: int = 6) -> np.ndarray:
+  """An (n, n, 4) mask of a regular polygon with `blades` corners (1 inside,
+  0 outside, alpha 1): a lens aperture's shape."""
+  c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+  x, y = np.meshgrid(c, c)
+  ang = np.arctan2(y, x)
+  sector = 2.0 * np.pi / blades
+  edge = np.cos(sector / 2.0) / np.cos(np.mod(ang, sector) - sector / 2.0)
+  inside = np.hypot(x, y) <= 0.95 * edge
+  img = np.zeros((n, n, 4), np.float32)
+  img[..., :3] = inside[..., None]
+  img[..., 3] = 1.0
+  return img
+
+
+def build_dof_cornell_box(film_size=(640, 640), lens_radius=0.1, focal_distance=3.2,
+                          aperture_blades=6, **kwargs):
+  """The Cornell box through a thin lens (focused on the short box) whose
+  aperture is a polygon image of the bank, sampled by its distribution."""
+  b = build_cornell_box(film_size=film_size, **kwargs)
+  b.lens_radius = float(lens_radius)
+  b.focal_distance = float(focal_distance)
+  b.camera_lens_image = b.add_image(aperture_image(blades=aperture_blades), build_cdf=True)
   return b

@@ -1,7 +1,7 @@
 """Device scene tables and the static render configuration.
 
-Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the path tracer
-of the Cornell, materials, bigscene and volumetric scenes reads: NamedTuples
+Counterpart of `etx_tracer_tpu/scene/types.py`, cut to what the port's
+path tracer and VCM family read: NamedTuples
 of torch tensors that all lie on one device, and a frozen `SceneConfig`. Field names and layouts
 are the JAX package's, so a test can compare the two scenes field by field,
 but for the BVH, which holds the port's kernel tables.
@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from etx_tracer_tpu_torch.render import images as images_mod
 
 
 class MaterialClass:
@@ -46,9 +48,10 @@ class SubsurfaceClass:
 
 
 class Camera(NamedTuple):
-  """Pinhole camera; scalars are 0-d float32 tensors. `view_proj`, `area`,
-  `lens_radius` and `focal_distance` serve light-to-camera connections
-  (`render/camera.sample_film`); the scene bridge rejects a lens."""
+  """Camera; scalars are 0-d tensors. A lens (depth of field) is on where
+  `lens_radius` and `focal_distance` are both above kEpsilon; `lens_image`
+  shapes its aperture by an image of the bank. `view_proj`, `area` and the
+  lens serve light-to-camera connections (`render/camera.sample_film`)."""
   position: torch.Tensor      # (3,)
   direction: torch.Tensor     # (3,)
   side: torch.Tensor          # (3,)
@@ -62,13 +65,34 @@ class Camera(NamedTuple):
   clip_near: torch.Tensor     # ()
   clip_far: torch.Tensor      # ()
   medium_index: torch.Tensor  # () int32 medium the camera sits in, -1: vacuum
+  lens_image: torch.Tensor    # () int32 aperture-shape image, -1: a round lens
 
 
 class Emitters(NamedTuple):
-  """The power CDF over emitter instances (their records are em_table rows)."""
+  """The power CDF over emitter instances (their records are em_table rows)
+  and the distant (environment and directional) instances that a missed
+  ray reads."""
   pdf: torch.Tensor            # (E,) float32 discrete selection pdf
   cdf: torch.Tensor            # (E,) float32 inclusive cdf
   total_weight: torch.Tensor   # () float32
+  env_indices: torch.Tensor    # (64,) int32 distant instances of weight > 0, -1 padded
+  env_count: torch.Tensor      # () int32
+
+
+class ImageBank(NamedTuple):
+  """Every image of the scene in one padded bank, with what sampling reads:
+  alias tables over the padded extents (an image without a distribution
+  keeps tables of ones) and the pdf normalization (`render/images.py`). A
+  scene without images holds one 1x1 white texel."""
+  pixels: torch.Tensor         # (I, H, W, 4) float32
+  size: torch.Tensor           # (I, 2) int32 true (w, h)
+  offset: torch.Tensor         # (I, 2) float32 uv offset (environment maps)
+  scale_u: torch.Tensor        # (I,) float32, < 0 mirrors u
+  normalization: torch.Tensor  # (I,) float32
+  col_ap: torch.Tensor         # (I, H) float32 alias probabilities over rows
+  col_ai: torch.Tensor         # (I, H) int32 alias targets
+  row_ap: torch.Tensor         # (I, H, W) float32 each row's, over columns
+  row_ai: torch.Tensor         # (I, H, W) int32
 
 
 class Mediums(NamedTuple):
@@ -128,6 +152,7 @@ class DeviceScene(NamedTuple):
   bsphere_radius: torch.Tensor  # () farthest vertex from it (at least 1e-3)
   mediums: Mediums
   radiance_clamp: torch.Tensor  # () float32: a sample's luminance cap, 0: none
+  images: ImageBank
   bvh: Optional[BVH] = None
   spec_at_wl: Optional[tuple] = None
 
@@ -155,6 +180,15 @@ class SceneConfig:
   # adaptive sampling (`models/vcm.render_adaptive`): a pixel stops taking
   # camera samples once its relative noise estimate falls below this
   noise_threshold: float = 0.1
+  # distant emitters of weight > 0 (missed rays add their radiance)
+  has_env_emitters: bool = False
+  num_env_emitters: int = 0
+  # the scene holds images (an environment map, a sun disk, a lens shape)
+  has_images: bool = False
+  # emitter classes present: NEE runs only these branches
+  emitter_classes: tuple = (0,)
+  # panoramic camera: NDC uv maps to longitude and latitude
+  equirectangular: bool = False
 
 
 def _to(x, device):
@@ -185,9 +219,10 @@ def bvh_from_arrays(arrays, device) -> BVH:
 def scene_from_arrays(arrays, device) -> DeviceScene:
   """Build a DeviceScene from numpy arrays keyed by dotted field path
   ("tri_v0", "camera.position", "emitters.cdf", "mediums.grid",
-  "bvh.node_table", ...;
-  `bvh_from_arrays`). Extra keys are ignored; a missing key raises
-  KeyError, but for "bvh.fat_table"."""
+  "images.pixels", "bvh.node_table", ...; `bvh_from_arrays`). Extra keys
+  are ignored; a missing key raises KeyError, but for "bvh.fat_table" and
+  the "images." fields, which default to the bank of a scene without
+  images."""
   device = torch.device(device)
 
   def t(name):
@@ -196,8 +231,10 @@ def scene_from_arrays(arrays, device) -> DeviceScene:
   def sub(cls, prefix):
     return cls(**{f: t(f"{prefix}.{f}") for f in cls._fields})
 
+  if "images.pixels" not in arrays:
+    arrays = {**arrays, **{f"images.{k}": v for k, v in images_mod.empty_bank().items()}}
   flat = {f: t(f) for f in DeviceScene._fields
-          if f not in ("emitters", "camera", "mediums", "bvh", "spec_at_wl")}
+          if f not in ("emitters", "camera", "mediums", "images", "bvh", "spec_at_wl")}
   return DeviceScene(emitters=sub(Emitters, "emitters"), camera=sub(Camera, "camera"),
-                     mediums=sub(Mediums, "mediums"), bvh=bvh_from_arrays(arrays, device),
-                     **flat)
+                     mediums=sub(Mediums, "mediums"), images=sub(ImageBank, "images"),
+                     bvh=bvh_from_arrays(arrays, device), **flat)

@@ -11,25 +11,25 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from etx_tracer_tpu_torch import resolve_device
-from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.ops import bvh_build
+from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
 from etx_tracer_tpu_torch.scene.builder import RENDERED_CLASSES
 
 # JAX SceneConfig fields and the values the port supports (anything else
 # belongs to a later slice)
 _REQUIRED = {
-    "has_env_emitters": False,
-    "has_images": False,
-    "num_env_emitters": 0,
     "blue_noise": False,
-    "emitter_classes": (st.EmitterClass.Area,),
-    "equirectangular": False,
     "diffuse_variations": (0,),
     "has_alpha": False,
     "validate": False,
 }
+# material fields naming a texture of the bank (ROADMAP Queue 1 item 7)
+_TEXTURES = ("reflectance_img", "scattering_img", "roughness_img", "metalness_img",
+             "transmission_img", "normal_img", "thinfilm_img")
 
 
 def check_supported(config_fields) -> None:
@@ -38,7 +38,8 @@ def check_supported(config_fields) -> None:
     if name in config_fields and config_fields[name] != want:
       raise NotImplementedError(
           f"SceneConfig.{name}={config_fields[name]!r}: the port renders only "
-          f"{name}={want!r} (scenes of area emitters without textures)")
+          f"{name}={want!r} (blue noise, diffuse variations, alpha and validation are "
+          "later slices)")
   classes = tuple(config_fields.get("material_classes", ()))
   if not set(classes) <= set(RENDERED_CLASSES):
     raise NotImplementedError(
@@ -50,15 +51,17 @@ def check_supported(config_fields) -> None:
 
 def from_numpy(arrays, config_fields, device=None):
   """(DeviceScene, SceneConfig) from numpy arrays keyed by dotted field path
-  ("tri_v0", "camera.position", "emitters.cdf", ...) and a mapping of
-  SceneConfig field values, the tree in the JAX layout ("bvh.node_min",
-  ...). The arrays, with the BVH kernels' tables built from the tree, are
-  copied onto `device` (default: the CUDA card, which must exist)."""
+  ("tri_v0", "camera.position", "emitters.env_indices", "images.col_ap",
+  ...) and a mapping of SceneConfig field values, the tree in the JAX
+  layout ("bvh.node_min", ...). The arrays, with the BVH kernels' tables
+  built from the tree, are copied onto `device` (default: the CUDA card,
+  which must exist); the JAX bank's fields that the port does not read
+  (the CDF stand-ins, `inv_size`) are dropped."""
   device = resolve_device(device)
   check_supported(config_fields)
-  if (float(arrays["camera.lens_radius"]) > em.kEpsilon
-      and float(arrays["camera.focal_distance"]) > em.kEpsilon):
-    raise NotImplementedError("depth of field: a later slice")
+  mats = np.asarray(arrays["mat_table"])
+  if (mats[:, [packed.mat_column(f) for f in _TEXTURES]] >= 0).any():
+    raise NotImplementedError("material textures: a later slice (ROADMAP Queue 1 item 7)")
   names = {f.name for f in dataclasses.fields(st.SceneConfig)}
   config = st.SceneConfig(**{k: v for k, v in config_fields.items() if k in names})
   arrays = {**arrays, **bvh_build.kernel_tables(arrays)}

@@ -74,10 +74,10 @@ def _numpy_tree(monkeypatch):
 
 def _jax_arrays(scene):
   """The JAX DeviceScene's leaves as numpy arrays keyed by dotted field path
-  (the image bank and the per-step cache aside; fat_rows only when set)."""
+  (the per-step cache aside; fat_rows only when set)."""
   out = {}
   for name, v in scene._asdict().items():
-    if name in ("images", "spec_at_wl"):
+    if name == "spec_at_wl":
       continue
     if isinstance(v, tuple):
       out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()

@@ -72,7 +72,7 @@ def _t(x):
 def _jax_arrays(scene):
   out = {}
   for name, v in scene._asdict().items():
-    if name in ("images", "spec_at_wl"):
+    if name == "spec_at_wl":
       continue
     if isinstance(v, tuple):
       out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()

@@ -58,11 +58,11 @@ MEAN_RTOL = 0.005                 # whole render: image mean
 
 def _jax_arrays(scene):
   """The JAX DeviceScene's leaves as numpy arrays keyed by dotted field path
-  (the image bank and the per-step cache aside; the BVH's fat rows only when
-  the tree has them)."""
+  (the per-step cache aside; the BVH's fat rows only when the tree has them;
+  the image bank's fields with them, the port reading those it needs)."""
   out = {}
   for name, v in scene._asdict().items():
-    if name in ("images", "spec_at_wl"):
+    if name == "spec_at_wl":
       continue
     if isinstance(v, tuple):
       out.update({f"{name}.{f}": np.asarray(x) for f, x in v._asdict().items()
@@ -178,7 +178,7 @@ def assert_bvh_holds_tree(bvh, arrays):
   assert not rows[:, 10:].any()
 
 
-@pytest.mark.parametrize("field,value", [("has_images", True), ("material_classes", (0, 6))])
+@pytest.mark.parametrize("field,value", [("blue_noise", True), ("material_classes", (0, 6))])
 def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   with pytest.raises(NotImplementedError):
@@ -196,7 +196,7 @@ def test_scene_bridge_accepts_the_materials_options(jax_scene, field, value):
   assert getattr(config, field) == value
 
 
-@pytest.mark.parametrize("kwargs", [{"with_light": False}, {"specular_boxes": True}])
+@pytest.mark.parametrize("kwargs", [{"specular_boxes": True}])
 def test_cornell_options_of_later_slices_raise(kwargs):
   with pytest.raises(NotImplementedError, match="slice"):
     pcornell.build_cornell_box(film_size=FILM, **kwargs)
@@ -204,11 +204,12 @@ def test_cornell_options_of_later_slices_raise(kwargs):
 
 @pytest.mark.parametrize("kwargs", [{"spectral": True, "diffuse_only": True},
                                     {"diffuse_only": False}, {"fog_grid": np.ones((2, 2, 2))},
-                                    {"fog_scattering": 0.5}])
+                                    {"fog_scattering": 0.5}, {"with_light": False}])
 def test_cornell_options_of_the_materials_slice_build_as_in_jax(monkeypatch, kwargs):
-  """The spectral Cornell box, the one with the conductor tall box and the
+  """The spectral Cornell box, the one with the conductor tall box, the
   ones filled with a heterogeneous or a homogeneous fog (the media slice)
-  freeze the JAX package's tables."""
+  and the one without its light (one Undefined emitter of weight 0, the
+  environment slice) freeze the JAX package's tables."""
   _numpy_tree(monkeypatch)
   arrays, config = pcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
                                               **kwargs).arrays()
@@ -468,7 +469,15 @@ from etx_tracer_tpu_torch.models import vcm
 scene, config = cornell.build_cornell_box(film_size=(8, 8), diffuse_only=True,
                                           max_path_length=4).build(device="cpu")
 cloud, cloud_config = volumetric.volumetric((8, 8)).build(device="cpu")
-for sc, cfg, options in ((scene, config, vcm.VCMOptions()), (cloud, cloud_config, vcm.bdpt_options())):
+from etx_tracer_tpu_torch.render import images
+from etx_tracer_tpu_torch.scene import atmosphere
+sky = atmosphere.atmosphere_scene((8, 8), sky_size=(8, 4)).build(device="cpu")
+img = film.result_image(path_tracing.render(*sky, iterations=1, device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+assert not images.bank_is_empty(sky[0].images)
+floor, floor_config = atmosphere.env_floor_scene((8, 8)).build(device="cpu")
+for sc, cfg, options in ((scene, config, vcm.VCMOptions()), (cloud, cloud_config, vcm.bdpt_options()),
+                         (floor, floor_config, vcm.bdpt_options())):
   img = film.result_image(vcm.render(sc, cfg, options, iterations=1, device="cpu"))
   assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all()) and float(img.sum()) > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]

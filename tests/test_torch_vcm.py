@@ -181,14 +181,6 @@ def test_sample_emission_matches_jax(scenes, spectral):
   assert (got.pdf_dir.numpy() > 0).all() and (got.value.numpy() > 0).all()
 
 
-def test_sample_emission_rejects_other_emitter_classes(scenes):
-  pscene = scenes[False][1][0]
-  table = pscene.em_table.clone()
-  table[0, 0] = 2  # directional
-  with pytest.raises(NotImplementedError, match="item 6"):
-    pemitters.check_area_emitters(pscene._replace(em_table=table))
-
-
 @pytest.mark.parametrize("spectral", [False, True])
 def test_reverse_pdf_matches_jax(spectral):
   """Over the materials scene's Diffuse, Conductor and Dielectric rows, a
