@@ -151,6 +151,25 @@ Phases, one line each with its elapsed seconds:
      environment-lit floor (4 iterations), a Cornell box through a lens
      shaped by an image and bench config 3 (its staged sky, spectral) by
      path tracing (4 spp each), all through K1/K2;
+     and the shading slice's: the all-classes showcase by path tracing with
+     blue noise (2 spp) and by VCM (without the per-cell cap, at a merge
+     radius that keeps every cell within the glossy merge's 32 photons, 1
+     iteration), both through K3/K4, and the specular-box Cornell (a glass
+     tall box, a mirror short box) by path tracing (4 spp, K1/K2);
+  22b. main path, shading showcase (run before phase 22): the all-classes
+     showcase (`tests/shading_showcase.py`: nine icospheres of order 2 in
+     the spectral Cornell box lit by a 4000 K white LED, one each of the
+     textured Plastic, Velvet, Translucent, Principled with metalness,
+     roughness and normal-map images, Mirror, the two rough-diffuse
+     variations, Void and an alpha-cut Diffuse; 2,916 triangles) at
+     512x512, max path length 16, a 2^18-lane pool, blue noise, by
+     `_pt_mrays`'s protocol shortened to 2 warm iterations and 2 timed
+     repetitions of 2: staging, warm-up and timed seconds, rays, Mrays/s
+     and K3/K4 launches (every trace through K3/K4); gated (finite, no
+     negative luminance, mean luminance within +-10% of the port's 64x64
+     CPU render); then K3 and K4 on the closest-hit and shadow rays of its
+     bounce 2, captured, held bit-equal to their plain versions and timed;
+     and one iteration at 256x256 profiled as phase 13's path is;
   23. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
@@ -170,6 +189,8 @@ and prints no result. The script imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -189,6 +210,8 @@ from etx_tracer_tpu_torch.render import film as film_mod
 from etx_tracer_tpu_torch.scene import atmosphere, bigscene, caustics, cornell, materials
 from etx_tracer_tpu_torch.scene import volumetric
 from etx_tracer_tpu_torch.scene import packed
+from etx_tracer_tpu_torch.scene import builder as scene_builder
+from etx_tracer_tpu_torch.scene import spectral_data
 from etx_tracer_tpu_torch.scene import types as scene_types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -346,6 +369,64 @@ MEDIA_E2E = (
         (32, 32), scene_types.SubsurfaceClass.ChristensenBurley), 2),
     ("fog + Boundary cube + radiance clamp", lambda: volumetric.fog_boundary_cornell((32, 32)),
      4))
+# the all-classes shading showcase (`tests/shading_showcase.py`, 2,916
+# triangles, spectral, path length 16, blue noise) at 512x512 by
+# `bench.py:_pt_mrays`'s protocol shortened: SHOWCASE_ITERATIONS warm
+# iterations, then SHOWCASE_REPS timed repetitions of as many
+SHOWCASE_SIZE = (512, 512)
+SHOWCASE_ITERATIONS = 2
+SHOWCASE_REPS = 2
+SHOWCASE_CLASSES = (0, 1, 2, 3, 6, 8, 9, 10)
+SHOWCASE_TRIANGLES = 36 + 9 * 320
+# its mean luminance after the last repetition must lie in this range: the
+# port's CPU render at 64x64, 4 spp, SHOWCASE_REFERENCE (`python -m
+# tests.shading_reference_means`, which prints the JAX package's beside
+# it), +-10%
+SHOWCASE_REFERENCE = 0.0704459
+SHOWCASE_MEAN = (0.06340, 0.07749)
+# the showcase's 32x32 VCM render card vs CPU: merging without the per-cell
+# cap, at a merge radius that keeps every cell within the 32 photons the
+# glossy merge examines (with a diffuse variation present, Diffuse lanes
+# merge through the BSDF dispatch, and an over-full cell would give it its
+# first 32 photons in the order of a hash of their positions' last bits)
+SHOWCASE_VCM = vcm.VCMOptions(max_photons_per_cell=1 << 20, initial_radius=0.02)
+# the showcase's profiled iteration: its kernels a bounce do not depend on
+# the film, and at 512x512 the profiler's records of its ~54,000 kernels a
+# bounce take a minute to read
+SHOWCASE_PROFILE_SIZE = (256, 256)
+
+
+def _shading_showcase():
+  """`tests/shading_showcase.py`, loaded by its path (a `tests` package
+  installed elsewhere would shadow the repository's directory)."""
+  path = Path(__file__).resolve().parent / "tests" / "shading_showcase.py"
+  spec = importlib.util.spec_from_file_location("shading_showcase", path)
+  module = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(module)
+  return module
+
+
+def showcase_scene(film, dev, max_path_length=16):
+  """The all-classes showcase, staged and frozen on `dev`, with blue noise."""
+  scene, config = _shading_showcase().showcase(
+      cornell, scene_builder, scene_types, spectrum, spectral_data, film_size=film,
+      max_path_length=max_path_length).build(device=dev)
+  return scene, dataclasses.replace(config, blue_noise=True)
+
+
+# the 32x32 card-vs-CPU renders of the shading slice: (label, builder,
+# options (None: path tracing), spp or iterations, kernels that must launch);
+# the showcase's VCM render is cut to path length 6 (at 16 its iteration
+# takes minutes on the CPU: every lane runs every lobe, the VCM passes'
+# at each stored vertex and merged photon)
+SHADING_E2E = (
+    ("shading showcase spectral blue noise", lambda d: showcase_scene((32, 32), d), None, 2,
+     ("intersect_brute2", "occluded_brute2")),
+    ("shading showcase VCM mpl 6", lambda d: showcase_scene((32, 32), d, max_path_length=6),
+     SHOWCASE_VCM, 1, ("intersect_brute2", "occluded_brute2")),
+    ("specular-box Cornell", lambda d: cornell.build_cornell_box(
+        (32, 32), max_path_length=8, specular_boxes=True).build(device=d), None, 4,
+     ("intersect", "occluded")))
 T0 = time.perf_counter()
 
 
@@ -1580,6 +1661,61 @@ def captured_atmosphere(scene, config, dev):
           for name, rays in (("intersect", closest), ("occluded", shadow))}
 
 
+def main_path_showcase(dev):
+  """The all-classes showcase through `render_samples_static` (see
+  SHOWCASE_SIZE): staged on the host, SHOWCASE_ITERATIONS warm iterations
+  and SHOWCASE_REPS timed repetitions of as many, the launch counts set to
+  0 before the warm-up and read after the last repetition. Every trace
+  goes to K3/K4. Gates the image: finite, no negative luminance, mean
+  luminance inside SHOWCASE_MEAN. Returns ((scene, config), counts)."""
+  t0 = time.perf_counter()
+  scene, config = showcase_scene(SHOWCASE_SIZE, dev)
+  torch.cuda.synchronize()
+  staged = time.perf_counter() - t0
+  check(config.spectral and config.material_classes == SHOWCASE_CLASSES
+        and config.diffuse_variations == (0, 1, 2) and config.has_alpha and config.blue_noise
+        and config.max_path_length == 16 and scene.tri_v0.shape[0] == SHOWCASE_TRIANGLES
+        and scene.material_features == ("scattering_img", "roughness_img", "metalness_img", "normal_img")
+        and path_tracing.uses_deferred_nee(config), f"showcase config {config}")
+  n, pool = SHOWCASE_ITERATIONS, 1 << 18
+  reset_counts()
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  sums, rays = path_tracing.render_samples_static(scene, config, 0, n, pool_size=pool, device=dev)
+  int(rays.item())
+  warm = time.perf_counter() - t1
+  t1 = time.perf_counter()
+  total = 0
+  for rep in range(1, 1 + SHOWCASE_REPS):
+    sums, rays = path_tracing.render_samples_static(scene, config, rep, n, pool_size=pool,
+                                                    device=dev)
+    total += int(rays.item())
+  seconds = time.perf_counter() - t1
+  counts = read_counts()
+  img = film_mod.result_image(path_tracing.finalize_film(sums, n, config.film_width)).cpu().numpy()
+  say("main", f"shading showcase {SHOWCASE_SIZE[0]}x{SHOWCASE_SIZE[1]} spectral mpl 16 pool "
+      f"2^18 blue noise: staged and frozen in {staged:.2f} s; warm-up {n} spp {warm:.3f} s; "
+      f"{SHOWCASE_REPS} x {n} spp {seconds:.3f} s, {total} rays, "
+      f"{total / seconds / 1e6:.3f} Mrays/s; launches {counts}")
+  check(img.shape == (config.film_height, config.film_width, 3), f"image shape {img.shape}")
+  check(bool(np.isfinite(img).all()), "showcase: image has non-finite values")
+  y = img @ spectrum.RGB_TO_XYZ[1].astype(np.float64)
+  check(float(y.min()) >= -1e-5 * max(1.0, float(img.max())),
+        f"showcase: negative luminance {y.min()}")
+  lo, hi = SHOWCASE_MEAN
+  check(lo <= float(y.mean()) <= hi,
+        f"showcase: mean luminance {float(y.mean())} outside [{lo}, {hi}]")
+  say("main", f"showcase image mean {float(img.mean()):.5f}, mean luminance "
+      f"{float(y.mean()):.5f} (CPU 64x64 {SHOWCASE_REFERENCE}), negative-channel pixels "
+      f"{float((img < 0.0).any(axis=-1).mean()):.4f}")
+  for key in ("intersect_brute2", "occluded_brute2"):
+    check(counts[key] > 0, f"the showcase main path never launched the {key} kernel")
+  others = {k: c for k, c in counts.items()
+            if c and k not in ("intersect_brute2", "occluded_brute2")}
+  check(not others, f"the showcase main path launched {others}")
+  return (scene, config), counts
+
+
 def render_small(build, dev_name: str, iterations: int, options=None):
   """A small render through `path_tracing.render`, or with `options`
   through `vcm.render`."""
@@ -1652,7 +1788,7 @@ def end_to_end(atmosphere_32):
     counts = read_counts()
     say("e2e", f"{label}: launches {counts}")
     check(counts["intersect"] > 0, f"the {label} 32x32 render never launched the intersect kernel")
-  for label, make, options, iterations, want in VCM_E2E:
+  for label, make, options, iterations, want in VCM_E2E + SHADING_E2E:
     reset_counts()
     card_vs_cpu(f"{label} 32x32 {iterations} iterations", make, iterations, options)
     counts = read_counts()
@@ -1865,6 +2001,10 @@ def main() -> int:
   profile_step_mix("atmosphere 512x512", *atmosphere_512, dev)
   rows_atm = captured_atmosphere(*atmosphere_512, dev)
   del atmosphere_512
+  showcase_512, counts_show = main_path_showcase(dev)
+  captured_phase("shading showcase", ("intersect_brute2", "occluded_brute2"), *showcase_512, dev)
+  del showcase_512
+  profile_step_mix("shading showcase 256x256", *showcase_scene(SHOWCASE_PROFILE_SIZE, dev), dev)
   # the staged sky and sun serve the 32x32 render too
   atmosphere_builder.film_size = (32, 32)
   end_to_end(atmosphere_builder)
@@ -1902,6 +2042,9 @@ def main() -> int:
   say("kernels", f"K1/K2 launches on the atmosphere path {counts_atm['intersect']} / "
       f"{counts_atm['occluded']} ({ATMOSPHERE_ITERATIONS} warm + {ATMOSPHERE_REPS} x "
       f"{ATMOSPHERE_ITERATIONS} spp); on its bounce {CAPTURE_BOUNCE}: {rows_atm}")
+  say("kernels", f"K3/K4 launches on the shading showcase path "
+      f"{counts_show['intersect_brute2']} / {counts_show['occluded_brute2']} "
+      f"({SHOWCASE_ITERATIONS} warm + {SHOWCASE_REPS} x {SHOWCASE_ITERATIONS} spp)")
   print(card_line, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   # one card: the run uses cuda:0 and nothing else

@@ -14,8 +14,12 @@ form, as the JAX package does: a step traces its own shadow rays, through
 interfaces switching the medium) with media, else through the any-hit
 kernel; there are no pending rays and no drain.
 
-The port renders the Diffuse, Conductor, Dielectric, Thinfilm and Boundary
-classes (`config.material_classes`) lit by area emitters and distant ones
+The port renders every material class (`config.material_classes`; the
+Diffuse variations of `config.diffuse_variations`), with material images
+(colours, roughness, metalness, transmission, normal maps) and the
+stochastic alpha test (`config.has_alpha`: a hit is skipped, the lane going
+straight on, with probability one minus the opacity times the scattering
+image's alpha), lit by area emitters and distant ones
 (environment maps and directional sun disks: NEE samples every class of
 `config.emitter_classes`, a missed ray gathers the environment through
 `emitters.env_contribution`), seen through a pinhole, a thin lens or an
@@ -25,7 +29,9 @@ once), with homogeneous and
 heterogeneous media (free-path sampling, NEE from medium points with HG
 phase MIS, `render/media.py`), subsurface scattering (random walk and
 Christensen-Burley, `render/subsurface.py`) and a radiance clamp on each
-sample, without textures. RNG streams key off (pixel, iteration) only, so
+sample. With `config.blue_noise` the first bounce's BSDF and emitter draws
+take blue-noise-rotated R2 points (`core/bluenoise.py`) in place of the
+stream's. RNG streams key off (pixel, iteration) only, so
 the port reproduces the JAX package's sample streams draw for draw; the
 media and subsurface loops run over the whole wavefront for the JAX loops'
 trip counts, which every lane's stream depends on.
@@ -43,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from etx_tracer_tpu_torch import resolve_device
+from etx_tracer_tpu_torch.core import bluenoise
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.core import rng
 from etx_tracer_tpu_torch.core import spectrum as spmod
@@ -50,6 +57,7 @@ from etx_tracer_tpu_torch.ops import trace as trace_ops
 from etx_tracer_tpu_torch.render import camera as camera_mod
 from etx_tracer_tpu_torch.render import emitters as emitters_mod
 from etx_tracer_tpu_torch.render import film as film_mod
+from etx_tracer_tpu_torch.render import images as images_mod
 from etx_tracer_tpu_torch.render import media as media_mod
 from etx_tracer_tpu_torch.render import spectral as spx
 from etx_tracer_tpu_torch.render import subsurface as sss_mod
@@ -82,6 +90,7 @@ class PTState(NamedTuple):
   rng_state: torch.Tensor    # (R,) int64 holding a uint32
   wl: torch.Tensor           # (R,) wavelength (spectral mode), else 0
   alive: torch.Tensor        # (R,) bool
+  pixel: torch.Tensor        # (R,) int64 film pixel this lane renders
   sample_iter: torch.Tensor  # (R,) int64 sample iteration of this lane
   rays_traced: torch.Tensor  # () int64: path rays + shadow rays traced
   # deferred-NEE pending shadow ray, traced in the NEXT step; tmax < 0 = none
@@ -137,7 +146,7 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int,
       eta=torch.ones(r, device=dev), bsdf_pdf=zeros(r),
       mis_flag=torch.ones(r, dtype=torch.bool, device=dev),
       rng_state=state, wl=wl, alive=sample_ids < end_sample,
-      sample_iter=iteration,
+      pixel=pixel_index, sample_iter=iteration,
       rays_traced=zeros(dtype=torch.int64),
       psh_o=zeros(r, 3), psh_d=zeros(r, 3),
       psh_tmax=torch.full((r,), -1.0, device=dev), psh_rgb=zeros(r, 3),
@@ -332,11 +341,25 @@ def pt_step(scene, config, state: PTState) -> PTState:
   emitter_idx = torch.where(found, trows.emitter, -1)
   sd = ShadingData(w_i=state.ray_d, nrm=nrm, tan=tan, btn=btn, geo_n=trows.geo_n,
                    tex=uv, wl=state.wl, medium=state.medium, mat=mat)
+  sd = images_mod.apply_normal_map(scene, sd, trows.geo_n)
+  nrm = sd.nrm
 
-  # Boundary materials: pass straight through, swap the medium
+  # Boundary materials and hits that fail the alpha test pass straight
+  # through (a Boundary into the medium on the far side)
   has_boundary = MC.Boundary in classes
   is_boundary = found & (mat.cls == MC.Boundary) if has_boundary else None
-  surface = found & ~is_boundary if has_boundary else found
+  pass_through = is_boundary
+  if config.has_alpha:
+    # the hit is skipped with probability 1 - opacity x the scattering
+    # image's alpha; never a Boundary or a Void hit
+    rng_state, a_rnd = rng.next_float(rng_state)
+    alpha_v = images_mod.apply_scalar_image(scene, mat.opacity, mat, "scattering_img", uv,
+                                            channel=3)
+    alpha_skip = found & (mat.cls != MC.Void) & (alpha_v <= a_rnd)
+    if has_boundary:
+      alpha_skip = alpha_skip & ~is_boundary
+    pass_through = alpha_skip if pass_through is None else pass_through | alpha_skip
+  surface = found & ~pass_through if pass_through is not None else found
 
   # --- direct emitter hit ---
   directly_visible = state.path_length == 1
@@ -358,7 +381,11 @@ def pt_step(scene, config, state: PTState) -> PTState:
 
   # --- BSDF sample ---
   rng_state, rnd_bsdf = rng.next_n(rng_state, bsdf_dispatch.NUM_SAMPLE_RND)
-  bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, spectral, classes)
+  if config.blue_noise:
+    first_b = (state.path_length == 1)[..., None]
+    bn = _blue_noise(config, state, 0)
+    rnd_bsdf = torch.cat([torch.where(first_b, bn, rnd_bsdf[:, 0:2]), rnd_bsdf[:, 2:]], dim=-1)
+  bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, spectral, classes, config.diffuse_variations)
 
   # --- subsurface: walk to an exit, continue and shade from there ---
   if config.has_subsurface:
@@ -386,16 +413,19 @@ def pt_step(scene, config, state: PTState) -> PTState:
                      is_delta=torch.where(sss_ok, False, bs.is_delta))
     # lanes that took the subsurface path but found no exit die
     found = found & ~(sss_path & ~gather.found)
-    surface = found & ~is_boundary if has_boundary else found
+    surface = found & ~pass_through if pass_through is not None else found
 
   # --- NEE ---
   rng_state, rnd_sel = rng.next_float(rng_state)
   rng_state, rnd_em = rng.next_2d(rng_state)
+  if config.blue_noise:
+    rnd_em = torch.where(first_b, _blue_noise(config, state, 2), rnd_em)
   can_nee = surface & (state.path_length + 1 <= config.max_path_length)
   em_idx, _ = emitters_mod.sample_emitter_index(scene, rnd_sel)
   esmp = emitters_mod.sample_emitter(scene, em_idx, rnd_em, pos, state.wl, spectral,
                                      config.emitter_classes)
-  bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, spectral, classes)
+  bsdf_val, bsdf_pdf_at = bsdf_dispatch.evaluate(scene, sd, esmp.direction, spectral, classes,
+                                                 config.diffuse_variations)
   if config.has_subsurface:
     # a subsurface exit shades as white diffuse, times the gather's weight
     white = em.kInvPi * torch.clamp(em.dot(sd.nrm, esmp.direction), min=0.0)
@@ -443,19 +473,23 @@ def pt_step(scene, config, state: PTState) -> PTState:
   new_len = state.path_length + 1
   continue_ok = found
   sample_ok = bs.pdf > 0.0
-  if has_boundary:
-    # straight through, into the medium on the far side
-    ent = em.dot(nrm, state.ray_d) < 0.0
-    crossed = torch.where(ent, mat.int_medium, mat.ext_medium)
-    b3 = is_boundary[..., None]
-    new_d = torch.where(b3, state.ray_d, new_d)
-    new_throughput = torch.where(b3, throughput, new_throughput)
-    new_medium = torch.where(is_boundary, crossed, new_medium)
-    new_bsdf_pdf = torch.where(is_boundary, state.bsdf_pdf, new_bsdf_pdf)
-    new_mis = torch.where(is_boundary, state.mis_flag, new_mis)
-    new_eta = torch.where(is_boundary, state.eta, new_eta)
-    new_len = torch.where(is_boundary, state.path_length, new_len)
-    sample_ok = is_boundary | sample_ok
+  if pass_through is not None:
+    # straight through: a Boundary into the medium on the far side, a
+    # skipped alpha hit in the same medium
+    p3 = pass_through[..., None]
+    new_d = torch.where(p3, state.ray_d, new_d)
+    new_throughput = torch.where(p3, throughput, new_throughput)
+    through_medium = state.medium
+    if has_boundary:
+      ent = em.dot(nrm, state.ray_d) < 0.0
+      crossed = torch.where(ent, mat.int_medium, mat.ext_medium)
+      through_medium = torch.where(is_boundary, crossed, through_medium)
+    new_medium = torch.where(pass_through, through_medium, new_medium)
+    new_bsdf_pdf = torch.where(pass_through, state.bsdf_pdf, new_bsdf_pdf)
+    new_mis = torch.where(pass_through, state.mis_flag, new_mis)
+    new_eta = torch.where(pass_through, state.eta, new_eta)
+    new_len = torch.where(pass_through, state.path_length, new_len)
+    sample_ok = pass_through | sample_ok
   new_o = _shading_pos(sd.geo_n, pos, new_d)
   if config.has_media:
     # medium-scatter lanes go on along the sampled phase direction
@@ -476,8 +510,8 @@ def pt_step(scene, config, state: PTState) -> PTState:
   rng_state, rr_rnd = rng.next_float(rng_state)
   cont, new_throughput = _random_continue(new_len, config.rr_start, new_eta, rr_rnd,
                                           new_throughput)
-  if has_boundary:
-    cont = cont | is_boundary
+  if pass_through is not None:
+    cont = cont | pass_through
   alive = continue_ok & cont & sample_ok & (new_len <= config.max_path_length)
   rays_traced = state.rays_traced + state.alive.sum() + nee_ok.sum()
 
@@ -488,10 +522,18 @@ def pt_step(scene, config, state: PTState) -> PTState:
       throughput=new_throughput, accumulated=accumulated,
       view_normal=view_normal, view_albedo=view_albedo, medium=new_medium,
       path_length=new_len, eta=new_eta, bsdf_pdf=new_bsdf_pdf, mis_flag=new_mis,
-      rng_state=rng_state, wl=state.wl, alive=alive, sample_iter=state.sample_iter,
+      rng_state=rng_state, wl=state.wl, alive=alive, pixel=state.pixel,
+      sample_iter=state.sample_iter,
       rays_traced=rays_traced,
       psh_o=psh_o, psh_d=psh_d, psh_tmax=psh_tmax, psh_rgb=psh_rgb,
       res_rgb=res_rgb, res_valid=res_valid)
+
+
+def _blue_noise(config, state: PTState, dimension: int) -> torch.Tensor:
+  """The lanes' blue-noise points of dimension `dimension` (0: the BSDF
+  draw, 2: the emitter draw) at their pixel and sample iteration."""
+  return bluenoise.sample_2d(state.pixel % config.film_width, state.pixel // config.film_width,
+                             state.sample_iter, dimension)
 
 
 def _lane_color(scene, config, state: PTState) -> torch.Tensor:

@@ -438,7 +438,8 @@ def _light_step(scene, config, options: VCMOptions, state: VCMState, slot: int,
   w_o = cam.direction
   # only surface lanes that can connect read the lobe's value and pdfs
   sd_conn, conn_classes = bsdf_dispatch.restrict(sd, upd & ~bsdf_dispatch.is_delta(sd), classes)
-  bsdf_val, bsdf_fwd_pdf = bsdf_dispatch.evaluate(sc, sd_conn, w_o, spectral, conn_classes)
+  bsdf_val, bsdf_fwd_pdf = bsdf_dispatch.evaluate(sc, sd_conn, w_o, spectral, conn_classes,
+                                                  config.diffuse_variations)
   rev_pdf = (bsdf_fwd_pdf if options.fast_mis
              else bsdf_dispatch.reverse_pdf(sc, sd_conn, w_o, spectral, conn_classes))
   if config.has_media:
@@ -502,7 +503,7 @@ def _light_step(scene, config, options: VCMOptions, state: VCMState, slot: int,
 
   # --- BSDF sample and the recurrences of the next ray ---
   rng_state, rnd_bsdf = rng.next_n(rng_state, bsdf_dispatch.NUM_SAMPLE_RND)
-  bs = bsdf_dispatch.sample(sc, sd, rnd_bsdf, spectral, classes)
+  bs = bsdf_dispatch.sample(sc, sd, rnd_bsdf, spectral, classes, config.diffuse_variations)
   fixn = bsdf_dispatch.fix_shading_normal(trows.geo_n, nrm, state.ray_d, bs.w_o)
   new_thr = state.throughput * bs.weight * fixn[..., None]
   rng_state, rr_rnd = rng.next_float(rng_state)
@@ -729,12 +730,14 @@ def _sum3(a, b):
 
 def merge_gather(scene, grid: MergeGrid, sd: ShadingData, state: VCMState, radius: float,
                  vc_weight: float, options: VCMOptions, classes, spectral: bool,
-                 exit_mask=None, exit_weight=None, participates=None):
+                 variations=(0,), exit_mask=None, exit_weight=None, participates=None):
   """The photons within `radius` of each lane's position (`state.ray_o`)
   in the eight neighbouring cells, weighted and summed: (R,3) RGB.
 
-  Two passes. Lambert lanes (Diffuse, or a subsurface exit, `exit_mask`,
-  which shades white diffuse times `exit_weight`) take an analytic pass:
+  Two passes. Lambert lanes (Diffuse when `variations`, the diffuse
+  variations present, is Lambert's alone, or a subsurface exit,
+  `exit_mask`, which shades white diffuse times `exit_weight`) take an
+  analytic pass:
   for each k below the largest occupancy of any lane's cells (at most the
   grid's cap), the k-th photon of all eight cells at once. Other non-delta
   lanes take the BSDF dispatch, one photon of one cell a step, for the
@@ -758,7 +761,10 @@ def merge_gather(scene, grid: MergeGrid, sd: ShadingData, state: VCMState, radiu
   starts, ends = _segment_range(grid, cells)
   n_last = grid.pos.shape[0] - 1
 
+  lambert_ok = tuple(variations) == (0,)
   is_lambert = sd.mat.cls == MC.Diffuse
+  if not lambert_ok:
+    is_lambert = torch.zeros_like(is_lambert)
   if exit_mask is not None:
     is_lambert = is_lambert | exit_mask
   alb = lobes_mod._scattering(scene, sd, spectral)
@@ -807,7 +813,7 @@ def merge_gather(scene, grid: MergeGrid, sd: ShadingData, state: VCMState, radiu
       merged = merged + torch.where(ok[..., None], contrib, 0.0).sum(dim=0)
 
   glossy_classes = any(c not in (MC.Diffuse, MC.Mirror, MC.Void, MC.Boundary) for c in classes)
-  if glossy_classes and bool((part & ~is_lambert).any().item()):
+  if (glossy_classes or not lambert_ok) and bool((part & ~is_lambert).any().item()):
     steps = torch.clamp(occupancy.amax(dim=1), max=_MERGE_SCAN).tolist()
     sd_hard, classes = bsdf_dispatch.restrict(sd, ~is_lambert, classes)
     for ci in range(8):
@@ -820,7 +826,8 @@ def merge_gather(scene, grid: MergeGrid, sd: ShadingData, state: VCMState, radiu
         ok = in_range & grid.valid[j] & (dist2 <= r2) & ~is_lambert
         ok = ok & (em.dot(sd.nrm, grid.nrm[j]) > em.kEpsilon)
         w_in = grid.w_i[j]
-        bsdf_val, bsdf_pdf = bsdf_dispatch.evaluate(scene, sd_hard, -w_in, spectral, classes)
+        bsdf_val, bsdf_pdf = bsdf_dispatch.evaluate(scene, sd_hard, -w_in, spectral, classes,
+                                                    variations)
         rev_pdf = (bsdf_pdf if options.fast_mis
                    else bsdf_dispatch.reverse_pdf(scene, sd_hard, -w_in, spectral, classes))
         cos_o = torch.abs(em.dot(sd.nrm, -w_in))
@@ -881,7 +888,8 @@ def _connect_vertices(sc, scene, config, options: VCMOptions, state: VCMState,
     sc_big = sc._replace(spec_at_wl=(wl_rep, rp(sc.spec_at_wl[1])))
   sd_big = ShadingData(*(packed.MaterialRows(rp(x._rows)) if isinstance(x, packed.MaterialRows)
                          else rp(x) for x in sd_eval))._replace(wl=wl_rep)
-  cb_val, cb_pdf = bsdf_dispatch.evaluate(sc_big, sd_big, w_o, spectral, cam_classes)
+  cb_val, cb_pdf = bsdf_dispatch.evaluate(sc_big, sd_big, w_o, spectral, cam_classes,
+                                          config.diffuse_variations)
   c_rev = cb_pdf if options.fast_mis else bsdf_dispatch.reverse_pdf(sc_big, sd_big, w_o,
                                                                     spectral, cam_classes)
   if config.has_subsurface:
@@ -904,7 +912,8 @@ def _connect_vertices(sc, scene, config, options: VCMOptions, state: VCMState,
   # only stored vertices are read on the light side (`cam_classes`: the
   # camera side's lobes)
   lsd, light_classes = bsdf_dispatch.restrict(lsd, lv_valid, classes)
-  lb_val, lb_pdf = bsdf_dispatch.evaluate(sc_big, lsd, -w_o, spectral, light_classes)
+  lb_val, lb_pdf = bsdf_dispatch.evaluate(sc_big, lsd, -w_o, spectral, light_classes,
+                                          config.diffuse_variations)
   l_rev = lb_pdf if options.fast_mis else bsdf_dispatch.reverse_pdf(sc_big, lsd, -w_o,
                                                                     spectral, light_classes)
   w_dot_l = -_sum3(lv_nrm, w_o)
@@ -1001,7 +1010,7 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
 
   # --- the BSDF sample (before the connections: its lobe routes subsurface) ---
   rng_state, rnd_bsdf = rng.next_n(rng_state, bsdf_dispatch.NUM_SAMPLE_RND)
-  bs = bsdf_dispatch.sample(sc, sd, rnd_bsdf, spectral, classes)
+  bs = bsdf_dispatch.sample(sc, sd, rnd_bsdf, spectral, classes, config.diffuse_variations)
 
   # --- subsurface: connections, NEE and merging shade at the exit with the
   # white-diffuse exit lobe times the gather weight; a cosine continuation ---
@@ -1056,7 +1065,8 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
     esmp = emitters_mod.sample_emitter(sc, em_idx, rnd_em, nee_pos, state.wl, spectral,
                                        config.emitter_classes)
     w_o = esmp.direction
-    b_val, b_pdf = bsdf_dispatch.evaluate(sc, sd_eval, w_o, spectral, eval_classes)
+    b_val, b_pdf = bsdf_dispatch.evaluate(sc, sd_eval, w_o, spectral, eval_classes,
+                                          config.diffuse_variations)
     rev = b_pdf if options.fast_mis else bsdf_dispatch.reverse_pdf(sc, sd_eval, w_o, spectral,
                                                                    eval_classes)
     b_val, b_pdf, rev = sss_override(b_val, b_pdf, rev, w_o)
@@ -1115,7 +1125,7 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
   merged = None
   if options.enable_merging:
     merged = merge_gather(sc, grid, sd_eval, state._replace(ray_o=pos), radius, vc_weight,
-                          options, classes, spectral,
+                          options, classes, spectral, config.diffuse_variations,
                           exit_mask=sss_ok if config.has_subsurface else None,
                           exit_weight=sss_gather.weight if config.has_subsurface else None,
                           participates=participates)

@@ -10,9 +10,11 @@ costly class in `lax.cond` to skip a bounce with no lane of it; the result
 is the same either way, and here every listed class simply runs, unless
 the caller narrows the dispatch with `restrict` to the lanes whose results
 it reads and the classes they hold (the VCM integrator does; the path
-tracer does not). The port has the Diffuse, Conductor, Dielectric,
-Thinfilm and Boundary classes; Thinfilm and Boundary are delta lobes that
-evaluate to zero.
+tracer does not). Every class renders: Mirror, Thinfilm and Boundary are
+delta lobes that evaluate to zero; Void is a null lobe (the null result);
+Principled is the deterministic mixture of a conductor, a dielectric and a
+plastic view of the material by its metalness and transmission. Diffuse
+lanes run the variations of `variations` (`config.diffuse_variations`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from etx_tracer_tpu_torch.core import math as em
+from etx_tracer_tpu_torch.core import spectrum as spmod
+from etx_tracer_tpu_torch.render import images as images_mod
 from etx_tracer_tpu_torch.render import spectral as spx
 from etx_tracer_tpu_torch.render.bsdf import lobes
 from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
@@ -28,21 +32,18 @@ from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
 # the pt_step RNG stream advances by this many draws whatever the class)
 NUM_SAMPLE_RND = 7
 
-_SAMPLERS = {MC.Diffuse: lobes.diffuse_sample, MC.Conductor: lobes.conductor_sample,
-             MC.Dielectric: lobes.dielectric_sample, MC.Thinfilm: lobes.thinfilm_sample,
-             MC.Boundary: lobes.boundary_sample}
-# delta classes (Thinfilm, Boundary) evaluate to zero and have no entry
-_EVALUATORS = {MC.Diffuse: lobes.diffuse_evaluate, MC.Conductor: lobes.conductor_evaluate,
-               MC.Dielectric: lobes.dielectric_evaluate}
-_PDFS = {MC.Diffuse: lobes.diffuse_pdf, MC.Conductor: lobes.conductor_pdf,
-         MC.Dielectric: lobes.dielectric_pdf}
-
-
-def _check_classes(classes):
-  missing = [c for c in classes if c not in _SAMPLERS]
-  if missing:
-    raise NotImplementedError(
-        f"material classes {missing}: the slice that brings the remaining BSDFs")
+_SAMPLERS = {MC.Translucent: lobes.translucent_sample, MC.Plastic: lobes.plastic_sample,
+             MC.Conductor: lobes.conductor_sample, MC.Dielectric: lobes.dielectric_sample,
+             MC.Thinfilm: lobes.thinfilm_sample, MC.Mirror: lobes.mirror_sample,
+             MC.Boundary: lobes.boundary_sample, MC.Velvet: lobes.velvet_sample}
+# delta classes (Mirror, Thinfilm, Boundary) and Void evaluate to zero and
+# have no entry; Diffuse and Principled take their own arguments
+_EVALUATORS = {MC.Translucent: lobes.translucent_evaluate, MC.Plastic: lobes.plastic_evaluate,
+               MC.Conductor: lobes.conductor_evaluate, MC.Dielectric: lobes.dielectric_evaluate,
+               MC.Velvet: lobes.velvet_evaluate}
+_PDFS = {MC.Diffuse: lobes.diffuse_pdf, MC.Translucent: lobes.translucent_pdf,
+         MC.Plastic: lobes.plastic_pdf, MC.Conductor: lobes.conductor_pdf,
+         MC.Dielectric: lobes.dielectric_pdf, MC.Velvet: lobes.velvet_pdf}
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -51,9 +52,8 @@ def _select(mask: torch.Tensor, a, b):
 
 
 def sample(scene, sd: lobes.ShadingData, rnd: torch.Tensor, spectral: bool = False,
-           classes=(MC.Diffuse,)) -> lobes.BSDFSampleR:
+           classes=(MC.Diffuse,), variations=(0,)) -> lobes.BSDFSampleR:
   """bsdf::sample over the wavefront."""
-  _check_classes(classes)
   r = sd.w_i.shape[0]
   dev = sd.w_i.device
   result = lobes.BSDFSampleR(
@@ -64,23 +64,36 @@ def sample(scene, sd: lobes.ShadingData, rnd: torch.Tensor, spectral: bool = Fal
       is_reflection=torch.zeros(r, dtype=torch.bool, device=dev), medium=sd.medium)
   cls = sd.mat.cls
   for c in classes:
-    result = _select(cls == c, _SAMPLERS[c](scene, sd, rnd, spectral), result)
+    if c == MC.Void:  # the null result
+      continue
+    m = cls == c
+    if c == MC.Diffuse:
+      out = lobes.diffuse_sample(scene, sd, rnd, spectral, variations, mask=m)
+    elif c == MC.Principled:
+      out = _principled_sample(scene, sd, rnd, spectral)
+    else:
+      out = _SAMPLERS[c](scene, sd, rnd, spectral)
+    result = _select(m, out, result)
   return result
 
 
 def evaluate(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = False,
-             classes=(MC.Diffuse,)):
+             classes=(MC.Diffuse,), variations=(0,)):
   """bsdf::evaluate: (bsdf_with_cos (R,C), pdf (R,))."""
-  _check_classes(classes)
   r = sd.w_i.shape[0]
   bsdf = torch.zeros((r, spx.channels(spectral)), device=sd.w_i.device)
   pdf = torch.zeros(r, device=sd.w_i.device)
   cls = sd.mat.cls
   for c in classes:
-    if c not in _EVALUATORS:
+    if c != MC.Diffuse and c != MC.Principled and c not in _EVALUATORS:
       continue
     m = cls == c
-    b, p = _EVALUATORS[c](scene, sd, w_o, spectral)
+    if c == MC.Diffuse:
+      b, p = lobes.diffuse_evaluate(scene, sd, w_o, spectral, variations, mask=m)
+    elif c == MC.Principled:
+      b, p = _principled_evaluate(scene, sd, w_o, spectral)
+    else:
+      b, p = _EVALUATORS[c](scene, sd, w_o, spectral)
     bsdf = torch.where(m[..., None], b, bsdf)
     pdf = torch.where(m, p, pdf)
   return bsdf, pdf
@@ -88,11 +101,14 @@ def evaluate(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = F
 
 def pdf(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = False,
         classes=(MC.Diffuse,)):
-  _check_classes(classes)
+  """The density of sampling w_o (analytic for every class: no walk runs;
+  the diffuse variations all sample the cosine hemisphere)."""
   p = torch.zeros(sd.w_i.shape[0], device=sd.w_i.device)
   cls = sd.mat.cls
   for c in classes:
-    if c in _PDFS:
+    if c == MC.Principled:
+      p = torch.where(cls == c, _principled_pdf(scene, sd, w_o, spectral), p)
+    elif c in _PDFS:
       p = torch.where(cls == c, _PDFS[c](scene, sd, w_o, spectral), p)
   return p
 
@@ -144,3 +160,58 @@ def albedo(scene, sd: lobes.ShadingData, spectral: bool = False) -> torch.Tensor
   refl = spx.query_spd(scene, sd.mat.reflectance_spec, sd.wl, spectral)
   use_refl = (sd.mat.cls == MC.Conductor) | (sd.mat.cls == MC.Mirror)
   return torch.where(use_refl[..., None], refl, scat)
+
+
+# ---------------------------------------------------------------------------
+# Principled: the deterministic conductor / dielectric / plastic mixture
+# ---------------------------------------------------------------------------
+
+
+def _principled_views(sd: lobes.ShadingData):
+  """(the conductor view: the material with its inner IOR's class forced to
+  conductor; the dielectric and plastic view: the material itself)."""
+  conductor = sd.mat.with_column("int_ior_cls", spmod.SpectralDistribution.CLASS_CONDUCTOR)
+  return sd._replace(mat=conductor), sd
+
+
+def _principled_factors(scene, sd: lobes.ShadingData):
+  """(metalness, transmission), each times channel 0 of its image."""
+  metal = images_mod.apply_scalar_image(scene, sd.mat.metalness, sd.mat, "metalness_img", sd.tex)
+  trans = images_mod.apply_scalar_image(scene, sd.mat.transmission, sd.mat, "transmission_img",
+                                        sd.tex)
+  return metal, trans
+
+
+def _principled_pdf(scene, sd, w_o, spectral):
+  metal, trans = _principled_factors(scene, sd)
+  sdc, sdd = _principled_views(sd)
+  p_c = lobes.conductor_pdf(scene, sdc, w_o, spectral)
+  p_d = lobes.dielectric_pdf(scene, sdd, w_o, spectral)
+  p_p = lobes.plastic_pdf(scene, sdd, w_o, spectral)
+  return p_c * metal + p_d * (1.0 - metal) * trans + p_p * (1.0 - metal) * (1.0 - trans)
+
+
+def _principled_sample(scene, sd, rnd, spectral):
+  """The conductor view's sample where rnd column 5 falls below the
+  metalness, else the dielectric's where column 6 falls below the
+  transmission, else the plastic's."""
+  metal, trans = _principled_factors(scene, sd)
+  sdc, sdd = _principled_views(sd)
+  pick_metal = rnd[..., 5] < metal
+  pick_trans = rnd[..., 6] < trans
+  non_metal = _select(pick_trans, lobes.dielectric_sample(scene, sdd, rnd, spectral),
+                      lobes.plastic_sample(scene, sdd, rnd, spectral))
+  return _select(pick_metal, lobes.conductor_sample(scene, sdc, rnd, spectral), non_metal)
+
+
+def _principled_evaluate(scene, sd, w_o, spectral):
+  metal, trans = _principled_factors(scene, sd)
+  sdc, sdd = _principled_views(sd)
+  w_c = metal
+  w_d = (1.0 - metal) * trans
+  w_p = (1.0 - metal) * (1.0 - trans)
+  b_c, p_c = lobes.conductor_evaluate(scene, sdc, w_o, spectral)
+  b_d, p_d = lobes.dielectric_evaluate(scene, sdd, w_o, spectral)
+  b_p, p_p = lobes.plastic_evaluate(scene, sdd, w_o, spectral)
+  bsdf = b_c * w_c[..., None] + b_d * w_d[..., None] + b_p * w_p[..., None]
+  return bsdf, p_c * w_c + p_d * w_d + p_p * w_p

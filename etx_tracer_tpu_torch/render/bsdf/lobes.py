@@ -1,13 +1,18 @@
-"""Vectorized BSDF lobes: Diffuse, Conductor, Dielectric, Thinfilm and Boundary.
+"""Vectorized BSDF lobes: Diffuse (Lambert, the Heitz rough-diffuse walk,
+the vMF rough diffuse), Translucent, Plastic, Conductor, Dielectric,
+Thinfilm, Mirror, Boundary and Velvet.
 
-Counterpart of the same lobes of `etx_tracer_tpu/render/bsdf/lobes.py`, with
-the JAX package's default multiple-scattering backend (`MS_BACKEND = "lut"`:
-the energy-compensation tables of `energy_lut.py`). Conventions as there:
-`w_i` points TOWARD the surface; the normal frame is flipped so the incident
-ray arrives from local +z (`entering` records the flip); responses are
-(R, C) tensors, C = 1 spectral, C = 3 RGB. Smooth conductors and
-dielectrics (roughness <= 1e-4) take exact delta forms. The other classes,
-the diffuse variations, textures and the Heitz walk are later slices.
+Counterpart of `etx_tracer_tpu/render/bsdf/lobes.py`, with the JAX
+package's default multiple-scattering backend (`MS_BACKEND = "lut"`: the
+energy-compensation tables of `energy_lut.py`) for the rough conductor,
+dielectric and plastic lobes; its Heitz conductor, dielectric and plastic
+walks (`MS_BACKEND = "walk"`) are ROADMAP Queue 1 item 7. Conventions as
+there: `w_i` points TOWARD the surface; the normal frame is flipped so the
+incident ray arrives from local +z (`entering` records the flip);
+responses are (R, C) tensors, C = 1 spectral, C = 3 RGB. Smooth conductors
+and dielectrics (roughness <= 1e-4) take exact delta forms. Colours,
+roughness and (in `dispatch`) Principled's metalness and transmission read
+the material's images where a material has them (`render/images.py`).
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ import torch
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.core import rng
 from etx_tracer_tpu_torch.core import spectrum as spmod
+from etx_tracer_tpu_torch.render import images as images_mod
 from etx_tracer_tpu_torch.render import spectral as spx
 from etx_tracer_tpu_torch.render.bsdf import common as mf
 from etx_tracer_tpu_torch.render.bsdf import energy_lut
+from etx_tracer_tpu_torch.render.bsdf import multiscatter as ms
 
 kDeltaAlpha = em.kDeltaAlphaThreshold
 
@@ -75,11 +82,16 @@ def _flags(r: int, dev, delta, diffuse, reflection):
 
 
 def _scattering(scene, sd: ShadingData, spectral: bool) -> torch.Tensor:
-  return spx.query_spd(scene, sd.mat.scattering_spec, sd.wl, spectral)
+  """The scattering colour: its spectrum times its image's RGB."""
+  v = spx.query_spd(scene, sd.mat.scattering_spec, sd.wl, spectral)
+  return images_mod.apply_rgb_image(scene, v, sd.mat, "scattering_img", sd.tex, sd.wl, spectral)
 
 
 def _reflectance(scene, sd: ShadingData, spectral: bool) -> torch.Tensor:
-  return spx.query_spd(scene, sd.mat.reflectance_spec, sd.wl, spectral)
+  """The reflectance colour: its spectrum times its image's RGB."""
+  v = spx.query_spd(scene, sd.mat.reflectance_spec, sd.wl, spectral)
+  return images_mod.apply_rgb_image(scene, v, sd.mat, "reflectance_img", sd.tex, sd.wl,
+                                    spectral)
 
 
 def _ior(scene, sd, eta_idx, k_idx, spectral):
@@ -101,6 +113,11 @@ def _fresnel_at(scene, sd, cos_theta, spectral, swap=None):
     ext_eta, int_eta = torch.where(sw, int_eta, ext_eta), torch.where(sw, ext_eta, int_eta)
     ext_k, int_k = torch.where(sw, int_k, ext_k), torch.where(sw, ext_k, int_k)
   is_cond = sd.mat.int_ior_cls == spmod.SpectralDistribution.CLASS_CONDUCTOR
+  if "thinfilm" not in scene.material_features:
+    # no material has a film: the plain Fresnel term (what the film's
+    # `where` selects on every such lane)
+    return mf.fresnel(cos_theta, ext_eta, ext_k, int_eta, int_k, spectral,
+                      int_is_conductor=is_cond)
   tf_eta, tf_k = _ior(scene, sd, sd.mat.thinfilm_eta, sd.mat.thinfilm_k, spectral)
   tf_thick = 0.5 * (sd.mat.thinfilm_min + sd.mat.thinfilm_max)
   tf_active = (sd.mat.thinfilm_min * sd.mat.thinfilm_max) > 0.0
@@ -128,8 +145,10 @@ def _eta_ratio(scene, sd, spectral):
           / torch.clamp(spx.monochromatic(ext_eta, spectral), min=1e-6))
 
 
-def _roughness(sd) -> torch.Tensor:
-  return torch.stack([sd.mat.roughness[..., 0], sd.mat.roughness[..., 1]], dim=-1)
+def _roughness(sd, scene) -> torch.Tensor:
+  """(R,2) roughness, times channel 0 of its image."""
+  r = torch.stack([sd.mat.roughness[..., 0], sd.mat.roughness[..., 1]], dim=-1)
+  return images_mod.apply_scalar_image(scene, r, sd.mat, "roughness_img", sd.tex)
 
 
 def _is_delta_alpha(alpha) -> torch.Tensor:
@@ -166,37 +185,149 @@ def boundary_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = 
 
 
 # ---------------------------------------------------------------------------
-# Diffuse (Lambert)
+# Diffuse: Lambert (variation 0), the Heitz rough-diffuse walk (1), the vMF
+# rough diffuse (2)
 # ---------------------------------------------------------------------------
 
 
-def diffuse_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
-  """Cosine-weighted hemisphere sample of the Lambert lobe."""
+def _rough_diffuse_frame(scene, sd, frame):
+  """(-w_i in the flipped frame with z held at or above 1e-4, renormalised;
+  the clamped roughness) for the rough-diffuse variations."""
+  return em.normalize(_local_w_i(frame, sd)), mf.clamp_alpha(_roughness(sd, scene))
+
+
+def diffuse_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False,
+                   variations=(0,), mask=None) -> BSDFSampleR:
+  """A cosine-weighted hemisphere sample; lanes of variation 1 take the
+  walk's direction and energy instead (the walk runs on the lanes of
+  `mask`, those whose result the caller reads), lanes of variation 2 the
+  vMF BRDF's weight. `variations`: the variations present."""
   frame, _ = normal_frame(sd)
   local_w_o = em.sample_cosine_distribution(rnd[..., 0:2], 1.0)
   albedo = _scattering(scene, sd, spectral)
+  weight = albedo
   pdf = em.kInvPi * local_w_o[..., 2]
+  if 1 in variations or 2 in variations:
+    w_i_l, alpha = _rough_diffuse_frame(scene, sd, frame)
+    if 1 in variations:
+      m1 = sd.mat.diffuse_variation == 1
+      wo1, e1, _ = ms.diffuse_sample_walk(w_i_l, alpha, albedo, rnd,
+                                          active0=m1 if mask is None else m1 & mask)
+      local_w_o = torch.where(m1[..., None], wo1, local_w_o)
+      weight = torch.where(m1[..., None], e1, weight)
+      pdf = torch.where(m1, em.kInvPi * torch.clamp(local_w_o[..., 2], min=0.0), pdf)
+    if 2 in variations:
+      # bsdf * cos / pdf = f * cos / (cos / pi) = f * pi
+      f2 = ms.vmf_diffuse_brdf(w_i_l, local_w_o, alpha, albedo)
+      weight = torch.where((sd.mat.diffuse_variation == 2)[..., None], f2 * em.kPi, weight)
   w_o = em.from_local(*frame, local_w_o)
   r = sd.w_i.shape[0]
   dev = sd.w_i.device
-  return BSDFSampleR(w_o, albedo, pdf, torch.ones(r, device=dev),
+  return BSDFSampleR(w_o, weight, pdf, torch.ones(r, device=dev),
                      *_flags(r, dev, False, True, True), sd.medium)
 
 
-def diffuse_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
-  """(bsdf * cos (R,C), pdf (R,)) of the Lambert lobe toward w_o."""
-  (_, _, nrm), _ = normal_frame(sd)
-  cos_o = em.dot(nrm, w_o)
+def diffuse_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False,
+                     variations=(0,), mask=None):
+  """(bsdf * cos (R,C), pdf (R,)) toward w_o: Lambert, the walk's estimate
+  (variation 1, walked on the lanes of `mask`, its stream seeded from the
+  bits of w_o + uv) or the vMF BRDF (variation 2); the pdf is the cosine
+  hemisphere's for every variation."""
+  frame, _ = normal_frame(sd)
+  cos_o = em.dot(frame[2], w_o)
   albedo = _scattering(scene, sd, spectral)
   valid = cos_o > em.kEpsilon
   bsdf = albedo * em.kInvPi * torch.clamp(cos_o, min=0.0)[..., None]
+  if 1 in variations or 2 in variations:
+    w_i_l, alpha = _rough_diffuse_frame(scene, sd, frame)
+    w_o_l = em.to_local(*frame, w_o)
+    if 1 in variations:
+      m1 = sd.mat.diffuse_variation == 1
+      v1, _ = ms.diffuse_eval_walk(w_i_l, w_o_l, alpha, albedo, w_o[..., 0] + sd.tex[..., 0],
+                                   w_o[..., 1] + sd.tex[..., 1],
+                                   active0=m1 if mask is None else m1 & mask)
+      bsdf = torch.where(m1[..., None], v1, bsdf)
+    if 2 in variations:
+      f2 = ms.vmf_diffuse_brdf(w_i_l, w_o_l, alpha, albedo)
+      bsdf = torch.where((sd.mat.diffuse_variation == 2)[..., None],
+                         f2 * torch.clamp(cos_o, min=0.0)[..., None], bsdf)
   pdf = em.kInvPi * torch.clamp(cos_o, min=0.0)
   return torch.where(valid[..., None], bsdf, 0.0), torch.where(valid, pdf, 0.0)
 
 
 def diffuse_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
+  """The cosine hemisphere's density (every variation samples it)."""
   (_, _, nrm), _ = normal_frame(sd)
   return torch.clamp(em.dot(nrm, w_o), min=0.0) * em.kInvPi
+
+
+# ---------------------------------------------------------------------------
+# Translucent: diffuse reflection and diffuse transmission
+# ---------------------------------------------------------------------------
+
+
+def translucent_sample(scene, sd: ShadingData, rnd: torch.Tensor,
+                       spectral: bool = False) -> BSDFSampleR:
+  """A cosine-weighted direction on the reflected side (weight: the
+  reflectance) or the transmitted one (the scattering colour, into the
+  medium across), picked by their monochromatic shares."""
+  frame, ent = normal_frame(sd)
+  tr = _scattering(scene, sd, spectral)
+  rf = _reflectance(scene, sd, spectral)
+  tr_v = spx.monochromatic(tr, spectral)
+  rf_v = spx.monochromatic(rf, spectral)
+  total = tr_v + rf_v
+  p_tr = torch.where(total > 0, tr_v / torch.clamp(total, min=1e-20), 0.0)
+  pick_tr = rnd[..., 2] < p_tr
+  local_w_o = em.sample_cosine_distribution(rnd[..., 0:2], 1.0)
+  w_up = em.from_local(*frame, local_w_o)
+  n_dot_o = torch.abs(local_w_o[..., 2])
+  w_o = torch.where(pick_tr[..., None], -w_up, w_up)
+  pdf = n_dot_o * em.kInvPi * torch.where(pick_tr, p_tr, 1.0 - p_tr)
+  weight = torch.where(pick_tr[..., None], tr, rf)
+  medium = torch.where(pick_tr, _crossing_medium(sd, ent), sd.medium)
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(w_o, weight, torch.where(total > 0, pdf, 0.0), torch.ones(r, device=dev),
+                     *_flags(r, dev, False, True, ~pick_tr), medium)
+
+
+def translucent_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  n = sd.nrm
+  n_dot_i = -em.dot(n, sd.w_i)
+  n_dot_o = em.dot(n, w_o)
+  reflection = n_dot_o * n_dot_i > 0.0
+  tr = _scattering(scene, sd, spectral)
+  rf = _reflectance(scene, sd, spectral)
+  tr_v = spx.monochromatic(tr, spectral)
+  rf_v = spx.monochromatic(rf, spectral)
+  total = tr_v + rf_v
+  scale = torch.where(total > 1.0, 1.0 / torch.clamp(total, min=1e-20), 1.0)
+  a_o = torch.abs(n_dot_o)
+  func = torch.where(reflection[..., None], rf, tr) * (scale * em.kInvPi)[..., None]
+  bsdf = func * a_o[..., None]
+  sel = torch.where(reflection, rf_v, tr_v) / torch.clamp(total, min=1e-20)
+  pdf = em.kInvPi * a_o * sel
+  ok = total > 0
+  return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def translucent_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  return translucent_evaluate(scene, sd, w_o, spectral)[1]
+
+
+# ---------------------------------------------------------------------------
+# Mirror: delta reflection
+# ---------------------------------------------------------------------------
+
+
+def mirror_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  frame, _ = normal_frame(sd)
+  w_o = em.normalize(em.reflect(sd.w_i, frame[2]))
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(w_o, _scattering(scene, sd, spectral), torch.ones(r, device=dev),
+                     torch.ones(r, device=dev), *_flags(r, dev, True, False, True), sd.medium)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +338,7 @@ def diffuse_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = Fals
 
 def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
   frame, _ = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
   alpha_c = mf.clamp_alpha(alpha)
   w_i_l = em.normalize(_local_w_i(frame, sd))
@@ -238,7 +369,7 @@ def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool =
 def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
   """Energy-compensated closed form; zero on delta lanes."""
   frame, _ = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   alpha_c = mf.clamp_alpha(alpha)
   w_i_l = em.to_local(*frame, -sd.w_i)
   w_o_l = em.to_local(*frame, w_o)
@@ -255,7 +386,7 @@ def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool
 
 def conductor_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
   frame, _ = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   w_i_l = em.to_local(*frame, -sd.w_i)
   w_o_l = em.to_local(*frame, w_o)
   ok = (w_i_l[..., 2] > em.kEpsilon) & (w_o_l[..., 2] > em.kEpsilon) & ~_is_delta_alpha(alpha)
@@ -305,7 +436,7 @@ def _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral):
 
 def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
   frame, ent = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
   alpha_c = mf.clamp_alpha(alpha)
   w_i_l = _local_w_i(frame, sd)
@@ -377,7 +508,7 @@ def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: boo
   """Rough dielectric: the analytic single-scatter Walter terms scaled by
   the 1/E_d compensation; zero on delta lanes."""
   frame, ent = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
   alpha_c = mf.clamp_alpha(alpha)
   w_i_l = em.to_local(*frame, -sd.w_i)
@@ -418,7 +549,7 @@ def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: boo
 
 def dielectric_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
   frame, ent = normal_frame(sd)
-  alpha = _roughness(sd)
+  alpha = _roughness(sd, scene)
   alpha_c = mf.clamp_alpha(alpha)
   w_i_l = em.to_local(*frame, -sd.w_i)
   w_o_l = em.to_local(*frame, w_o)
@@ -453,3 +584,149 @@ def thinfilm_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = 
   r = sd.w_i.shape[0]
   return BSDFSampleR(w_o, weight, pdf, torch.ones(r, device=sd.w_i.device),
                      *_flags(r, sd.w_i.device, True, False, pick_refl), medium)
+
+
+# ---------------------------------------------------------------------------
+# Plastic: a Fresnel-weighted specular layer (the energy-compensated LUT
+# reflection lobe under the material's dielectric Fresnel) over diffuse
+# ---------------------------------------------------------------------------
+
+
+def plastic_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  frame, _ = normal_frame(sd)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  cos_i = w_i_l[..., 2]
+  cos_o = w_o_l[..., 2]
+  ok = (cos_i > em.kEpsilon) & (cos_o > em.kEpsilon)
+
+  alpha = mf.clamp_alpha(_roughness(sd, scene))
+  m = em.normalize(w_i_l + w_o_l)
+  f = _fresnel_at(scene, sd, em.dot(w_i_l, m), spectral)
+  f_mono = spx.monochromatic(f, spectral)
+
+  def fres_refl(cos_t):
+    return _fresnel_at(scene, sd, cos_t, spectral)
+
+  spec_bsdf = (energy_lut.conductor_eval_lut(fres_refl, w_i_l, w_o_l, alpha)
+               * _reflectance(scene, sd, spectral))
+  diff_bsdf = (_scattering(scene, sd, spectral) * (1.0 - f)
+               * (em.kInvPi * torch.clamp(cos_o, min=0.0))[..., None])
+  bsdf = diff_bsdf + spec_bsdf
+
+  spec_pdf = mf.vndf_pdf(w_i_l, m, alpha) / torch.clamp(4.0 * torch.abs(em.dot(w_o_l, m)),
+                                                        min=1e-9)
+  pdf = em.kInvPi * torch.clamp(cos_o, min=0.0) * (1.0 - f_mono) + f_mono * spec_pdf
+  return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def plastic_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  """The specular reflection off a visible normal with the Fresnel term's
+  probability (columns 0:3), else a cosine-weighted direction (3:5);
+  weighted by the full evaluation over its density."""
+  frame, _ = normal_frame(sd)
+  alpha = mf.clamp_alpha(_roughness(sd, scene))
+  w_i_l = _local_w_i(frame, sd)
+  m = mf.sample_vndf(rnd[..., 0:2], w_i_l, alpha)
+  f_mono = spx.monochromatic(_fresnel_at(scene, sd, em.dot(w_i_l, m), spectral), spectral)
+
+  w_spec_l = em.reflect(-w_i_l, m)
+  pick_spec = (rnd[..., 2] <= f_mono) & (w_spec_l[..., 2] > em.kEpsilon)
+  w_diff_l = em.sample_cosine_distribution(rnd[..., 3:5], 1.0)
+  w_o = em.from_local(*frame, torch.where(pick_spec[..., None], w_spec_l, w_diff_l))
+
+  bsdf, pdf = plastic_evaluate(scene, sd, w_o, spectral)
+  weight = torch.where(pdf[..., None] > 0, bsdf / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(w_o, weight, pdf, torch.ones(r, device=dev),
+                     *_flags(r, dev, False, ~pick_spec, True), sd.medium)
+
+
+def plastic_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False) -> torch.Tensor:
+  frame, _ = normal_frame(sd)
+  w_i_l = em.to_local(*frame, -sd.w_i)
+  w_o_l = em.to_local(*frame, w_o)
+  ok = (w_i_l[..., 2] > em.kEpsilon) & (w_o_l[..., 2] > em.kEpsilon)
+  alpha = mf.clamp_alpha(_roughness(sd, scene))
+  m = em.normalize(w_i_l + w_o_l)
+  f_mono = spx.monochromatic(_fresnel_at(scene, sd, em.dot(w_i_l, m), spectral), spectral)
+  spec_pdf = mf.vndf_pdf(w_i_l, m, alpha) / torch.clamp(4.0 * torch.abs(em.dot(w_o_l, m)),
+                                                        min=1e-9)
+  pdf = em.kInvPi * torch.clamp(w_o_l[..., 2], min=0.0) * (1.0 - f_mono) + f_mono * spec_pdf
+  return torch.where(ok, pdf, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Velvet: a sheen lobe with the analytic L-curve masking
+# ---------------------------------------------------------------------------
+
+
+def _lambda_velvet_l(r, x):
+  x = torch.clamp(x, min=0.0)
+
+  def lerp_x(a, b, t):
+    return em.sqr(1.0 - t) * a + (1.0 - em.sqr(1.0 - t)) * b
+
+  a = lerp_x(25.3245, 21.5473, r)
+  b = lerp_x(3.32435, 3.82987, r)
+  c = lerp_x(0.16801, 0.19823, r)
+  d = lerp_x(-1.27393, -1.97760, r)
+  e = lerp_x(-4.85967, -4.32054, r)
+  return a / (1.0 + b * torch.pow(torch.clamp(x, min=1e-9), c)) + d * x + e
+
+
+def _lambda_velvet(r, cos_t):
+  return torch.where(
+      cos_t < 0.5, torch.exp(_lambda_velvet_l(r, cos_t)),
+      torch.exp(2.0 * _lambda_velvet_l(r, torch.full_like(r, 0.5))
+                - _lambda_velvet_l(r, 1.0 - cos_t)))
+
+
+def velvet_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  frame, _ = normal_frame(sd)
+  n = frame[2]
+  n_dot_o = torch.clamp(em.dot(w_o, n), min=0.0)
+  n_dot_i = torch.clamp(-em.dot(sd.w_i, n), min=0.0)
+  m = em.normalize(w_o - sd.w_i)
+  m_dot_o = torch.clamp(em.dot(w_o, m), min=0.0)
+  m_dot_i = torch.clamp(-em.dot(sd.w_i, m), min=0.0)
+  ok = ((n_dot_o > em.kEpsilon) & (n_dot_i > em.kEpsilon) & (m_dot_o > em.kEpsilon)
+        & (m_dot_i > em.kEpsilon))
+
+  rough = _roughness(sd, scene)
+  alpha = 0.5 * (rough[..., 0] + rough[..., 1])
+  inv_alpha = 1.0 / (em.kEpsilon + alpha)
+  m_dot_n = em.dot(m, n)
+  sin_t = torch.clamp(1.0 - m_dot_n * m_dot_n, min=0.0)
+  d = (2.0 + inv_alpha) * torch.pow(torch.clamp(sin_t, min=1e-12), 0.5 * inv_alpha) / em.kDoublePi
+  g = 1.0 / (1.0 + _lambda_velvet(alpha, n_dot_i) + _lambda_velvet(alpha, n_dot_o))
+  spec_scale = torch.where(alpha > em.kEpsilon, 0.25 * d * g / torch.clamp(n_dot_i, min=1e-9), 0.0)
+
+  f90 = 0.5 + 2.0 * alpha * m_dot_o * m_dot_o
+
+  def fres_approx(f0, f90v, cos_t):
+    return f0 + (f90v - f0) * torch.pow(torch.clamp(1.0 - cos_t, min=0.0), 5.0)
+
+  diff_scale = fres_approx(1.0, f90, n_dot_o) * fres_approx(1.0, f90, n_dot_i) * em.kInvPi
+  bsdf = (_scattering(scene, sd, spectral) * (diff_scale * n_dot_o)[..., None]
+          + _reflectance(scene, sd, spectral) * spec_scale[..., None])
+  pdf = torch.full(n_dot_o.shape, 1.0 / em.kDoublePi, device=n_dot_o.device)
+  return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def velvet_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+  """A uniform hemisphere direction, weighted by the evaluation over its
+  density."""
+  frame, _ = normal_frame(sd)
+  w_o = em.sample_cosine_distribution_n(rnd[..., 0:2], frame[2], 0.0)
+  bsdf, pdf = velvet_evaluate(scene, sd, w_o, spectral)
+  weight = torch.where(pdf[..., None] > 0, bsdf / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+  r = sd.w_i.shape[0]
+  dev = sd.w_i.device
+  return BSDFSampleR(w_o, weight, pdf, torch.ones(r, device=dev),
+                     *_flags(r, dev, False, True, True), sd.medium)
+
+
+def velvet_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+  return velvet_evaluate(scene, sd, w_o, spectral)[1]

@@ -11,9 +11,18 @@ The alias tables are built on the host, in numpy and Python, by the
 algorithm of the JAX package's native builder (`alias_tables`): a Vose
 table over each row rescaled by its own double sum, whose leftovers and
 zero rows alias to themselves. Both packages then freeze the same tables,
-bit for bit, and a draw lands on the same texel. Texturing materials with
-images (`apply_rgb_image`, `scalar_image`, normal maps) is ROADMAP Queue 1
-item 7; the builder refuses materials with images.
+bit for bit, and a draw lands on the same texel.
+
+Materials read the bank through `apply_rgb_image` (a colour times the
+texel's RGB), `apply_scalar_image` (a factor times one channel) and
+`apply_normal_map` (a tangent-space normal map). Each is gated on a host
+fact fixed when the scene is frozen, `scene.material_features` (the
+material image columns that some material uses,
+`scene/packed.material_features`): where no material has
+the image, the call returns its input untouched and launches nothing, so a
+scene with a sky but untextured materials pays nothing for texturing. The
+results are those of the JAX package's calls, which run the lookups
+whenever the bank holds an image and select them away.
 """
 
 from __future__ import annotations
@@ -107,6 +116,68 @@ def pdf_at(bank, idx: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
   s_t = torch.clamp(torch.sin(em.kPi * torch.clamp(uv[:, 1], 0.0, 1.0)), min=0.0)
   s_t = torch.where(bank.size[idx, 1] <= 1, 1.0, s_t)
   return lum * s_t / torch.clamp(bank.normalization[idx], min=1e-12)
+
+
+def apply_rgb_image(scene, response: torch.Tensor, mat, column: str, uv: torch.Tensor,
+                    wl=None, spectral: bool = False) -> torch.Tensor:
+  """response times the RGB of each lane's image `getattr(mat, column)` at
+  uv, where the lane has one (in spectral mode the RGB is upsampled at the
+  lane's wavelength); response itself where no material has such an
+  image."""
+  if column not in scene.material_features:
+    return response
+  from etx_tracer_tpu_torch.render import spectral as spx
+  img_idx = getattr(mat, column)
+  texel = evaluate(scene.images, torch.clamp(img_idx, min=0), uv)
+  scaled = spx.apply_rgb(response, texel[:, :3], wl, spectral)
+  return torch.where((img_idx >= 0)[..., None], scaled, response)
+
+
+def apply_scalar_image(scene, value: torch.Tensor, mat, column: str, uv: torch.Tensor,
+                       channel: int = 0) -> torch.Tensor:
+  """value ((R,) or (R,k)) times channel `channel` of each lane's image
+  `getattr(mat, column)` at uv (times 1 where the lane has none); value
+  itself where no material has such an image."""
+  if column not in scene.material_features:
+    return value
+  img_idx = getattr(mat, column)
+  texel = evaluate(scene.images, torch.clamp(img_idx, min=0), uv)
+  s = torch.where(img_idx >= 0, texel[:, channel], 1.0)
+  return value * (s[..., None] if value.dim() > 1 else s)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+  return v / torch.clamp(torch.sqrt(em.dot(v, v)), min=1e-9)[..., None]
+
+
+def apply_normal_map(scene, sd, geo_n: torch.Tensor):
+  """The shading data with each lane's tangent-space normal map applied
+  (where the material has one and a normal scale above kEpsilon): the
+  mapped normal, blended toward geo_n up to four times until it lies on
+  the incident ray's geometric side, and the tangent frame rebuilt around
+  it. `sd` itself where no material has a normal map."""
+  if "normal_img" not in scene.material_features:
+    return sd
+  img = sd.mat.normal_img
+  scale = sd.mat.normal_scale
+  active = (img >= 0) & (scale > em.kEpsilon)
+  texel = evaluate(scene.images, torch.clamp(img, min=0), sd.tex)
+  n_ts = texel[:, :3] * 2.0 - 1.0
+  n_ts = _unit(torch.cat([n_ts[:, :2] * scale[..., None], n_ts[:, 2:3]], dim=-1))
+  nrm = _unit(sd.tan * n_ts[:, 0:1] + sd.btn * n_ts[:, 1:2] + sd.nrm * n_ts[:, 2:3])
+
+  # orient the normal to the hemisphere of the incident ray's geometric side
+  i_dot_g = em.dot(sd.w_i, geo_n)
+  n_fixed = nrm
+  for _ in range(4):
+    bad = (em.dot(sd.w_i, n_fixed) * i_dot_g) <= em.kEpsilon
+    n_fixed = torch.where(bad[..., None], _unit(n_fixed * 8.0 + geo_n), n_fixed)
+
+  tan = _unit(sd.tan - n_fixed * em.dot(sd.tan, n_fixed)[..., None])
+  btn = em.cross(n_fixed, tan)
+  m = active[..., None]
+  return sd._replace(nrm=torch.where(m, n_fixed, sd.nrm), tan=torch.where(m, tan, sd.tan),
+                     btn=torch.where(m, btn, sd.btn))
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.core import rng
 from etx_tracer_tpu_torch.ops import trace as trace_ops
+from etx_tracer_tpu_torch.render import images as images_mod
 from etx_tracer_tpu_torch.render import media as media_mod
 from etx_tracer_tpu_torch.render import spectral as spx
 from etx_tracer_tpu_torch.scene import packed
@@ -213,7 +214,9 @@ def gather_cb(scene, sd, mat_idx, entry_pos, rng_state, active, spectral: bool):
   dev = entry_pos.device
 
   sdist = spx.query_spd(scene, sd.mat.subsurface_spec, sd.wl, spectral)
-  base_weight = spx.query_spd(scene, sd.mat.scattering_spec, sd.wl, spectral)
+  base_weight = images_mod.apply_rgb_image(
+      scene, spx.query_spd(scene, sd.mat.scattering_spec, sd.wl, spectral), sd.mat,
+      "scattering_img", sd.tex, sd.wl, spectral)
 
   frames = [
       (sd.tan, sd.btn, sd.nrm, (0.25, 0.25, 0.5)),

@@ -1,22 +1,23 @@
 """Host-side scene staging and freezing into the device scene.
 
-Counterpart of `etx_tracer_tpu/scene/builder.py` for what the port renders:
-Diffuse, Conductor, Dielectric, Thinfilm and Boundary materials, subsurface
-scattering (random walk, Christensen-Burley), homogeneous and heterogeneous
-media, a radiance clamp, RGB or spectral rendering, triangle meshes (with
-per-vertex normals when given), area emitters, distant emitters
-(environment maps and directional sun disks), an image bank, and a camera
-that is a pinhole, a thin lens (its aperture optionally shaped by an
-image) or equirectangular, in a medium or not. Staging and commit-time
-work (vertex normals, tangent frames, distant and per-triangle area-emitter
-instancing, the power-based emitter distribution, the camera, the spectrum
-bank, the image bank's alias tables, the medium table) run in numpy exactly
-as in the JAX package, so both packages freeze bit-identical tables, and
-the numpy BVH builder (`ops/bvh_build.py`, the JAX package's numpy builder)
-builds every scene's tree, as the JAX builder does. `build(device)` adds
-the BVH kernels' tables and moves them onto the device. The other material
-classes, diffuse variations, alpha and material textures raise
-NotImplementedError naming the slice that brings them.
+Counterpart of `etx_tracer_tpu/scene/builder.py`: every material class
+(Diffuse and its variations, Translucent, Plastic, Conductor, Dielectric,
+Thinfilm, Mirror, Boundary, Velvet, Principled, Void), material images
+(colour, roughness, metalness, transmission and normal maps, an alpha
+channel), opacity, subsurface scattering (random walk, Christensen-Burley),
+homogeneous and heterogeneous media, a radiance clamp, RGB or spectral
+rendering, triangle meshes (with per-vertex normals and uvs when given),
+area emitters, distant emitters (environment maps and directional sun
+disks), an image bank, and a camera that is a pinhole, a thin lens (its
+aperture optionally shaped by an image) or equirectangular, in a medium or
+not. Staging and commit-time work (vertex normals, tangent frames, distant
+and per-triangle area-emitter instancing, the power-based emitter
+distribution, the camera, the spectrum bank, the image bank's alias
+tables, the medium table) run in numpy exactly as in the JAX package, so
+both packages freeze bit-identical tables, and the numpy BVH builder
+(`ops/bvh_build.py`, the JAX package's numpy builder) builds every scene's
+tree, as the JAX builder does. `build(device)` adds the BVH kernels'
+tables and moves them onto the device.
 """
 
 from __future__ import annotations
@@ -39,9 +40,8 @@ kInvalid = -1
 
 @dataclasses.dataclass
 class MaterialDesc:
-  """Host material description with the reference defaults. Every field is
-  packed into mat_table; the port renders the classes of `RENDERED_CLASSES`
-  without images, alpha or diffuse variations."""
+  """Host material description with the reference defaults; every field is
+  packed into mat_table."""
   name: str = ""
   cls: int = st.MaterialClass.Diffuse
   reflectance_spec: int = kInvalid
@@ -104,25 +104,6 @@ class EmitterProfileDesc:
   angular_size: float = 0.0
 
 
-RENDERED_CLASSES = (st.MaterialClass.Diffuse, st.MaterialClass.Conductor,
-                    st.MaterialClass.Dielectric, st.MaterialClass.Thinfilm,
-                    st.MaterialClass.Boundary)
-
-
-def _check_material(m: MaterialDesc):
-  if m.cls not in RENDERED_CLASSES:
-    raise NotImplementedError(
-        f"material {m.name!r}: class {m.cls} (Translucent, Plastic, Mirror, "
-        "Velvet, Principled, Void) is the slice that brings the remaining BSDFs")
-  if m.diffuse_variation != 0 or m.opacity < 1.0:
-    raise NotImplementedError(
-        f"material {m.name!r}: diffuse variations and alpha are later slices")
-  if any(i != kInvalid for i in (m.reflectance_img, m.scattering_img, m.emission_img,
-                                 m.roughness_img, m.normal_img, m.thinfilm_img)):
-    raise NotImplementedError(
-        f"material {m.name!r}: material textures are a later slice (ROADMAP Queue 1 item 7)")
-
-
 class SceneBuilder:
   def __init__(self):
     self.positions: list[np.ndarray] = []
@@ -177,7 +158,6 @@ class SceneBuilder:
     return self.add_spectrum(sp.SpectralDistribution.rgb_luminance(np.asarray(rgb, np.float32)))
 
   def add_material(self, desc: MaterialDesc) -> int:
-    _check_material(desc)
     self.materials.append(desc)
     if desc.name:
       self.material_names[desc.name] = len(self.materials) - 1
@@ -425,7 +405,11 @@ class SceneBuilder:
         has_images=len(self.images) > 0,
         emitter_classes=tuple(sorted({int(c) for c in inst_cls
                                       if c != st.EmitterClass.Undefined})) or (0,),
-        equirectangular=self.camera_equirectangular)
+        equirectangular=self.camera_equirectangular,
+        diffuse_variations=tuple(sorted({m.diffuse_variation for m in mats})) or (0,),
+        has_alpha=(any(m.opacity < 1.0 for m in mats)
+                   or any(m.scattering_img >= 0 and _has_cutout(self.images[m.scattering_img])
+                          for m in mats)))
     return arrays, config
 
   def build(self, device=None):
@@ -436,6 +420,12 @@ class SceneBuilder:
     arrays, config = self.arrays()
     arrays.update(bvh_build.kernel_tables(arrays))
     return st.scene_from_arrays(arrays, device), config
+
+
+def _has_cutout(image: dict) -> bool:
+  """Whether a staged image has an alpha channel below 1 somewhere."""
+  px = image["pixels"]
+  return px.ndim == 3 and px.shape[-1] >= 4 and float(px[..., 3].min()) < 1.0
 
 
 def _normalize(v):

@@ -59,14 +59,13 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   scattering (phase asymmetry fog_g) that the camera sits in; fog_grid, a
   (gz, gy, gx) density grid, makes it heterogeneous over the room's box
   instead (scattering 0.5 unless fog_scattering is set). Every material's
-  exterior medium is then the fog. The specular boxes (a mirror) raise
-  NotImplementedError naming the slice that brings them. Without its light
+  exterior medium is then the fog. specular_boxes makes the tall box a
+  smooth dielectric (eta 1.52) and the short box a mirror, both floating
+  0.05 above the floor (their bottoms would otherwise be coplanar with it,
+  a tie that intersectors break apart). Without its light
   (`with_light=False`) the box has no emitter of its own: add a distant one
   before building, or it freezes a single emitter of weight 0.
   """
-  if specular_boxes:
-    raise NotImplementedError(
-        "specular_boxes: the mirror box is the slice that brings the remaining BSDFs")
   b = SceneBuilder()
   b.samples = samples
   b.spectral = spectral
@@ -102,7 +101,16 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   m_green = b.add_material(MaterialDesc(name="green", cls=st.MaterialClass.Diffuse,
                                         scattering_spec=green, two_sided=True))
   m_short = m_gray
-  if diffuse_only:
+  if specular_boxes:
+    glass_eta = b.add_spectrum(sp.SpectralDistribution.constant(
+        1.52, sp.SpectralDistribution.CLASS_DIELECTRIC))
+    m_tall = b.add_material(MaterialDesc(
+        name="glassBox", cls=st.MaterialClass.Dielectric,
+        reflectance_spec=white, scattering_spec=white, int_ior_eta=glass_eta,
+        int_ior_cls=sp.SpectralDistribution.CLASS_DIELECTRIC, roughness=(0.0, 0.0)))
+    m_short = b.add_material(MaterialDesc(
+        name="mirrorBox", cls=st.MaterialClass.Mirror, scattering_spec=white, two_sided=True))
+  elif diffuse_only:
     m_tall = m_gray
   else:
     # conductor tall box: silver-like constant complex IOR
@@ -134,8 +142,9 @@ def build_cornell_box(film_size=(640, 640), samples=32, spectral=False,
   _quad(b, (-1, 0, 1), (-1, 0, -1), (-1, 2, -1), (-1, 2, 1), m_red)      # left wall (n=+x)
   _quad(b, (1, 0, -1), (1, 0, 1), (1, 2, 1), (1, 2, -1), m_green)        # right wall (n=-x)
 
-  _box(b, (0.33, 0.0, 0.37), (0.6, 0.6, 0.6), -17.0, m_short)    # short box
-  _box(b, (-0.33, 0.0, -0.29), (0.6, 1.2, 0.6), 17.0, m_tall)    # tall box
+  dy = 0.05 if specular_boxes else 0.0
+  _box(b, (0.33, dy, 0.37), (0.6, 0.6, 0.6), -17.0, m_short)    # short box
+  _box(b, (-0.33, dy, -0.29), (0.6, 1.2, 0.6), 17.0, m_tall)    # tall box
 
   # ceiling light: small quad just below the ceiling, facing down (n=-y)
   h = 2.0 - 1e-3

@@ -8,9 +8,9 @@ until >= 100 so um become nm) named by material; the search path is the
 
 Without a .spd library, the Lorentz-Drude curves of `spectral_data.py`
 serve gold, silver, copper and aluminium, and a compact built-in set other
-conductors (coarse n/k tables) and dielectrics (Cauchy fits). The
-illuminant names (D65, daylight, LEDs) raise NotImplementedError: their
-models come with the environment and atmosphere slice.
+conductors (coarse n/k tables) and dielectrics (Cauchy fits), and the
+illuminant names resolve to the models of `spectral_data.py` (D65, the
+CIE daylight curves, the white LEDs) or to Planck radiators.
 """
 
 from __future__ import annotations
@@ -163,7 +163,7 @@ _BUILTIN_DIELECTRICS = {
     "superglass": (1.8042, 0.01234),
 }
 
-# illuminant SPD names, served by the environment and atmosphere slice
+# illuminant SPD names and their nominal CCTs
 _BUILTIN_ILLUMINANT_CCT = {
     "blackbody_3000k": 3000.0, "blackbody_5000k": 5000.0,
     "blackbody_6500k": 6500.0, "daylight_5000k": 5000.0,
@@ -203,9 +203,8 @@ class IORDatabase:
     if ld_key in sdata.LD_METALS:
       eta, k = sdata.conductor_spectra(ld_key)
       return sp.SpectralDistribution.CLASS_CONDUCTOR, eta, k
-    if key == "d65" or key in _BUILTIN_ILLUMINANT_CCT:
-      raise NotImplementedError(
-          f"illuminant {name!r}: the environment and atmosphere slice")
+    if key == "d65":
+      return sp.SpectralDistribution.CLASS_ILLUMINANT, sdata.d65(), None
     if key in _BUILTIN_CONDUCTORS:
       wl, n, kk = _BUILTIN_CONDUCTORS[key]
       cls = sp.SpectralDistribution.CLASS_CONDUCTOR
@@ -223,4 +222,15 @@ class IORDatabase:
       eta = sp.SpectralDistribution((a + b / lam_um2).astype(np.float32), cls)
       k = sp.SpectralDistribution.constant(0.0, cls)
       return cls, eta, k
+    if key in _BUILTIN_ILLUMINANT_CCT:
+      cct = _BUILTIN_ILLUMINANT_CCT[key]
+      if key.startswith("daylight"):
+        spd = sdata.daylight(cct)
+      elif key.startswith("led"):
+        spd = sdata.led(cct, high_cri="high_cri" in key)
+      else:
+        # blackbody_* and the tungsten halogen are Planck radiators
+        spd = sp.SpectralDistribution.from_normalized_black_body(cct, 1.0)
+        spd.cls = sp.SpectralDistribution.CLASS_ILLUMINANT
+      return sp.SpectralDistribution.CLASS_ILLUMINANT, spd, None
     return None

@@ -48,6 +48,25 @@ def mat_column(name: str) -> int:
   return _MAT_COLUMNS[name][0]
 
 
+# the image columns of MAT_LAYOUT
+MATERIAL_IMAGE_COLUMNS = ("reflectance_img", "scattering_img", "roughness_img",
+                          "metalness_img", "transmission_img", "normal_img", "thinfilm_img")
+
+
+def material_features(mat_table: np.ndarray) -> tuple:
+  """Host facts about a packed material table (numpy, one row a
+  material), fixed when a scene is frozen: the image columns that hold an
+  image index in some row, then "thinfilm" where some material has a thin
+  film (thinfilm_min x thinfilm_max > 0). They gate the texture lookups
+  (`render/images.py`) and the thin-film Fresnel (`render/bsdf/lobes.py`),
+  which then launch nothing for a scene without them."""
+  table = np.asarray(mat_table)
+  out = tuple(c for c in MATERIAL_IMAGE_COLUMNS if (table[:, mat_column(c)] >= 0).any())
+  if (table[:, mat_column("thinfilm_min")] * table[:, mat_column("thinfilm_max")] > 0.0).any():
+    out += ("thinfilm",)
+  return out
+
+
 def pack_materials(materials) -> np.ndarray:
   """materials: mapping field -> (M,) or (M,2) array, in MAT_LAYOUT's fields."""
   cols = []
@@ -71,6 +90,12 @@ class MaterialRows:
       raise AttributeError(name) from None
     v = self._rows[:, ofs] if width == 1 else self._rows[:, ofs:ofs + width]
     return v.to(torch.int32) if is_int else v
+
+  def with_column(self, name: str, value) -> "MaterialRows":
+    """A copy of the rows with the one-wide field `name` set to `value`."""
+    rows = self._rows.clone()
+    rows[:, _MAT_COLUMNS[name][0]] = value
+    return MaterialRows(rows)
 
 
 def build_tri_table(pos, nrm, tan, btn, uv, idx, geo_n, mat, emitter, area) -> np.ndarray:

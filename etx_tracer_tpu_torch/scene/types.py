@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from etx_tracer_tpu_torch.render import images as images_mod
+from etx_tracer_tpu_torch.scene import packed
 
 
 class MaterialClass:
@@ -136,7 +137,10 @@ class DeviceScene(NamedTuple):
   kernels ignore it below. `spec_at_wl` is set only inside a spectral
   bounce: (the bounce's wavelength tensor, every SPD at each lane's
   wavelength (R, S)), which `render/spectral.query_spd` reads for queries at
-  that very wavelength tensor."""
+  that very wavelength tensor. `material_features` holds host facts fixed
+  when the scene is frozen (`scene/packed.material_features`): the
+  material image columns ("scattering_img", ...) that some material uses,
+  and "thinfilm" where some material has a thin film."""
   tri_v0: torch.Tensor      # (T,3) Möller-Trumbore arrays
   tri_e1: torch.Tensor      # (T,3)
   tri_e2: torch.Tensor      # (T,3)
@@ -155,12 +159,14 @@ class DeviceScene(NamedTuple):
   images: ImageBank
   bvh: Optional[BVH] = None
   spec_at_wl: Optional[tuple] = None
+  material_features: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
-  """Static render configuration (the subset of the JAX SceneConfig this
-  slice supports; `scene_bridge.check_supported` rejects the rest)."""
+  """Static render configuration (the JAX SceneConfig's fields that the port
+  reads; `scene_bridge.check_supported` rejects a configuration it cannot
+  render)."""
   film_width: int = 640
   film_height: int = 640
   spectral: bool = False
@@ -189,6 +195,14 @@ class SceneConfig:
   emitter_classes: tuple = (0,)
   # panoramic camera: NDC uv maps to longitude and latitude
   equirectangular: bool = False
+  # blue-noise-rotated R2 samples for the first bounce's BSDF and emitter draws
+  blue_noise: bool = False
+  # diffuse variations present (0 Lambert, 1 the Heitz rough-diffuse walk,
+  # 2 the vMF rough diffuse): the Diffuse lobe runs only these
+  diffuse_variations: tuple = (0,)
+  # the stochastic alpha test runs (some material has an opacity below 1 or
+  # a scattering image with an alpha below 1)
+  has_alpha: bool = False
 
 
 def _to(x, device):
@@ -234,7 +248,10 @@ def scene_from_arrays(arrays, device) -> DeviceScene:
   if "images.pixels" not in arrays:
     arrays = {**arrays, **{f"images.{k}": v for k, v in images_mod.empty_bank().items()}}
   flat = {f: t(f) for f in DeviceScene._fields
-          if f not in ("emitters", "camera", "mediums", "images", "bvh", "spec_at_wl")}
+          if f not in ("emitters", "camera", "mediums", "images", "bvh", "spec_at_wl",
+                       "material_features")}
   return DeviceScene(emitters=sub(Emitters, "emitters"), camera=sub(Camera, "camera"),
                      mediums=sub(Mediums, "mediums"), images=sub(ImageBank, "images"),
-                     bvh=bvh_from_arrays(arrays, device), **flat)
+                     bvh=bvh_from_arrays(arrays, device),
+                     material_features=packed.material_features(arrays["mat_table"]),
+                     **flat)

@@ -11,40 +11,24 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.ops import bvh_build
-from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
-from etx_tracer_tpu_torch.scene.builder import RENDERED_CLASSES
 
-# JAX SceneConfig fields and the values the port supports (anything else
-# belongs to a later slice)
-_REQUIRED = {
-    "blue_noise": False,
-    "diffuse_variations": (0,),
-    "has_alpha": False,
-    "validate": False,
-}
-# material fields naming a texture of the bank (ROADMAP Queue 1 item 7)
-_TEXTURES = ("reflectance_img", "scattering_img", "roughness_img", "metalness_img",
-             "transmission_img", "normal_img", "thinfilm_img")
+# JAX SceneConfig fields and the values the port supports: the finite-guard
+# validation build is ROADMAP Queue 1 item 12
+_REQUIRED = {"validate": False}
 
 
 def check_supported(config_fields) -> None:
-  """Raise NotImplementedError if a configuration needs a later slice."""
+  """Raise NotImplementedError if a configuration needs a part the port
+  does not have yet."""
   for name, want in _REQUIRED.items():
     if name in config_fields and config_fields[name] != want:
       raise NotImplementedError(
           f"SceneConfig.{name}={config_fields[name]!r}: the port renders only "
-          f"{name}={want!r} (blue noise, diffuse variations, alpha and validation are "
-          "later slices)")
-  classes = tuple(config_fields.get("material_classes", ()))
-  if not set(classes) <= set(RENDERED_CLASSES):
-    raise NotImplementedError(
-        f"SceneConfig.material_classes={classes!r}: the port renders the classes "
-        f"{RENDERED_CLASSES}; the others are the slice that brings the remaining BSDFs")
+          f"{name}={want!r} (the validation build is ROADMAP Queue 1 item 12)")
   if config_fields.get("pixel_filter", "blackman-harris") not in ("blackman-harris", "box", "center"):
     raise ValueError(f"unknown pixel_filter {config_fields['pixel_filter']!r}")
 
@@ -59,9 +43,6 @@ def from_numpy(arrays, config_fields, device=None):
   (the CDF stand-ins, `inv_size`) are dropped."""
   device = resolve_device(device)
   check_supported(config_fields)
-  mats = np.asarray(arrays["mat_table"])
-  if (mats[:, [packed.mat_column(f) for f in _TEXTURES]] >= 0).any():
-    raise NotImplementedError("material textures: a later slice (ROADMAP Queue 1 item 7)")
   names = {f.name for f in dataclasses.fields(st.SceneConfig)}
   config = st.SceneConfig(**{k: v for k, v in config_fields.items() if k in names})
   arrays = {**arrays, **bvh_build.kernel_tables(arrays)}

@@ -415,16 +415,21 @@ def test_scene_bridge_carries_the_bank_lens_and_distant_emitters(monkeypatch):
 
 
 def test_material_textures_still_raise(monkeypatch):
-  """The builder and the scene bridge refuse a material with an image:
-  texturing is ROADMAP Queue 1 item 7."""
+  """The builder and the scene bridge take a material with an image (the
+  shading slice brought texturing; they refused it before): the same
+  tables as the JAX package's, and the bridge carries the texture fact
+  across."""
   monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
   pb = pcornell.build_cornell_box(film_size=FILM, diffuse_only=True)
-  img = pb.add_image(np.ones((4, 4, 4), np.float32))
-  with pytest.raises(NotImplementedError, match="item 7"):
-    pb.add_material(pbuilder.MaterialDesc(name="textured", scattering_img=img))
+  pb.materials[0] = dataclasses.replace(pb.materials[0],
+                                        scattering_img=pb.add_image(np.ones((4, 4, 4), np.float32)))
   jb = jcornell.build_cornell_box(film_size=FILM, diffuse_only=True)
   jb.materials[0] = dataclasses.replace(jb.materials[0],
                                         scattering_img=jb.add_image(np.ones((4, 4, 4), np.float32)))
   jscene, jconfig = jb.build()
-  with pytest.raises(NotImplementedError, match="item 7"):
-    scene_bridge.from_numpy(_jax_arrays(jscene), dataclasses.asdict(jconfig), device="cpu")
+  arrays, config = pb.arrays()
+  want = _jax_arrays(jscene)
+  for name in arrays:
+    np.testing.assert_array_equal(np.asarray(arrays[name]), want[name], err_msg=name)
+  scene, bconfig = scene_bridge.from_numpy(want, dataclasses.asdict(jconfig), device="cpu")
+  assert bconfig == config and scene.material_features == ("scattering_img",)

@@ -144,7 +144,11 @@ def test_scene_bridge_accepts_the_materials_scene(jax_scenes, port_scenes):
                                           device="cpu")
   want, want_config = port_scenes[True]
   assert config == want_config
+  # host facts, not tensors: the thin-film sphere's film
+  assert scene.material_features == want.material_features == ("thinfilm",)
   for f in ptypes.DeviceScene._fields:
+    if f == "material_features":
+      continue
     got_t, want_t = getattr(scene, f), getattr(want, f)
     for g, w in zip(got_t if isinstance(got_t, tuple) else [got_t],
                     want_t if isinstance(want_t, tuple) else [want_t]):
@@ -176,8 +180,12 @@ def test_ior_database_matches_jax(tmp_path, name):
 
 
 def test_ior_database_illuminants_are_a_later_slice():
-  with pytest.raises(NotImplementedError, match="slice"):
-    pior.IORDatabase().find("d65")
+  """The illuminant names, which the shading slice brought, resolve to the
+  JAX package's spectra (tests/test_torch_shading.py holds each model)."""
+  for name in ("d65", "daylight_6500k_noon_sky", "led_2700k_warm_white"):
+    got, want = pior.IORDatabase().find(name), jior.IORDatabase().find(name)
+    assert got[0] == want[0] and got[2] is None and want[2] is None
+    np.testing.assert_array_equal(got[1].values, want[1].values)
   assert pior.IORDatabase().find("no-such-material") is None
 
 

@@ -178,7 +178,7 @@ def assert_bvh_holds_tree(bvh, arrays):
   assert not rows[:, 10:].any()
 
 
-@pytest.mark.parametrize("field,value", [("blue_noise", True), ("material_classes", (0, 6))])
+@pytest.mark.parametrize("field,value", [("validate", True)])
 def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   with pytest.raises(NotImplementedError):
@@ -187,29 +187,31 @@ def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
 
 @pytest.mark.parametrize("field,value", [("spectral", True), ("material_classes", (0, 3, 4, 5)),
                                          ("has_media", True), ("has_radiance_clamp", True),
-                                         ("material_classes", (0, 7))])
+                                         ("material_classes", (0, 7)), ("blue_noise", True),
+                                         ("material_classes", (0, 6)),
+                                         ("material_classes", tuple(range(11))),
+                                         ("diffuse_variations", (0, 1, 2)),
+                                         ("has_alpha", True)])
 def test_scene_bridge_accepts_the_materials_options(jax_scene, field, value):
   """The options of the ported slices: spectral mode and the materials
-  classes, media, the radiance clamp and the Boundary class."""
+  classes, media, the radiance clamp and the Boundary class; blue noise,
+  every class, the diffuse variations and the alpha test."""
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   _, config = scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
   assert getattr(config, field) == value
 
 
-@pytest.mark.parametrize("kwargs", [{"specular_boxes": True}])
-def test_cornell_options_of_later_slices_raise(kwargs):
-  with pytest.raises(NotImplementedError, match="slice"):
-    pcornell.build_cornell_box(film_size=FILM, **kwargs)
-
-
 @pytest.mark.parametrize("kwargs", [{"spectral": True, "diffuse_only": True},
                                     {"diffuse_only": False}, {"fog_grid": np.ones((2, 2, 2))},
-                                    {"fog_scattering": 0.5}, {"with_light": False}])
+                                    {"fog_scattering": 0.5}, {"with_light": False},
+                                    {"specular_boxes": True},
+                                    {"specular_boxes": True, "spectral": True}])
 def test_cornell_options_of_the_materials_slice_build_as_in_jax(monkeypatch, kwargs):
   """The spectral Cornell box, the one with the conductor tall box, the
-  ones filled with a heterogeneous or a homogeneous fog (the media slice)
-  and the one without its light (one Undefined emitter of weight 0, the
-  environment slice) freeze the JAX package's tables."""
+  ones filled with a heterogeneous or a homogeneous fog (the media slice),
+  the one without its light (one Undefined emitter of weight 0, the
+  environment slice) and the one with a glass and a mirror box (the
+  shading slice) freeze the JAX package's tables."""
   _numpy_tree(monkeypatch)
   arrays, config = pcornell.build_cornell_box(film_size=FILM, max_path_length=MPL,
                                               **kwargs).arrays()
@@ -480,6 +482,22 @@ for sc, cfg, options in ((scene, config, vcm.VCMOptions()), (cloud, cloud_config
                          (floor, floor_config, vcm.bdpt_options())):
   img = film.result_image(vcm.render(sc, cfg, options, iterations=1, device="cpu"))
   assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all()) and float(img.sum()) > 0
+import dataclasses
+from etx_tracer_tpu_torch.core import bluenoise, spectrum
+from etx_tracer_tpu_torch.render.bsdf import multiscatter
+from etx_tracer_tpu_torch.scene import builder, spectral_data
+from tests import shading_showcase
+show, show_config = shading_showcase.showcase(cornell, builder, types, spectrum, spectral_data,
+                                              film_size=(8, 8), order=0).build(device="cpu")
+show_config = dataclasses.replace(show_config, blue_noise=True)
+assert show_config.diffuse_variations == (0, 1, 2) and show_config.has_alpha
+assert show.material_features and bluenoise.mask_np().shape == (128, 128)
+img = film.result_image(path_tracing.render(show, show_config, iterations=1, device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+img = film.result_image(vcm.render(show, show_config, vcm.VCMOptions(initial_radius=0.2),
+                                   iterations=1, device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+assert spectral_data.led(3000.0).values.max() > 0 and "multiscatter" in multiscatter.__name__
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")
