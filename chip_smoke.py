@@ -10,16 +10,17 @@ Phases, one line each with its elapsed seconds:
   3. K1 closest hit and 4. K2 any hit: each kernel against its plain PyTorch
      version on the card, on 2^18 rays against the Cornell triangles and a
      random 128-triangle soup, and on 2^16 rays against the materials
-     scene's 996 and bigscene's 15,396 triangles (the kernels take any
+     scene's 996 triangles and bigscene's 15,396 (the kernels take any
      count; the dispatch sends them at most 128), with and without masked
      rows; rays include axis-parallel ones, rays aimed at shared edges and
      vertices, and rays with t_max = -1; on the tables of at most 1,024
      triangles also under the eight lane patterns of phase 5. Times each
      kernel and its plain version at 2^18 rays x 36 triangles, and K1's at
      2^16 rays x 15,396, with each launch's blocks per SM, rays a block and
-     waves; then holds both against their plain versions on narrow batches
-     of 2^12, 2^14 and 2^16 live rays against the Cornell triangles and
-     times them there, with their launch shape;
+     waves; then holds both
+     against their plain versions on narrow batches of 2^12, 2^14 and 2^16
+     live rays against the Cornell triangles and times them there, with
+     their launch shape;
   5. K3 pair-tile closest hit and 6. K4 pair-tile any hit: the same checks
      on 2^18 rays against the materials scene's 996 triangles, random
      4096- and 4097-triangle soups, a 129-triangle soup, the Cornell
@@ -64,7 +65,7 @@ Phases, one line each with its elapsed seconds:
      versions and timed on them, beside their live share and bound;
   14. main path, materials: the spectral materials showcase (996 triangles:
      Diffuse, Conductor, Dielectric and Thinfilm) at 512x512, max path
-     length 16, a 2^18-lane pool and 8 iterations, counted and profiled the
+     length 16, a 2^18-lane pool and 4 iterations, counted and profiled the
      same way; then the closest-hit and shadow rays of bounce 2 of one more
      iteration, captured as the main path traces them (dead lanes at
      t_max = 0), with K3 and K4 held against their plain versions and timed
@@ -93,13 +94,13 @@ Phases, one line each with its elapsed seconds:
   18. main path, subsurface: `tests/test_media.py::test_sss_render`'s
      configuration (the gray material random-walk SSS;
      `scene/volumetric.subsurface_cornell`) at 384x384, max path length 6,
-     a 2^18-lane pool and 4 iterations, gated, timed and profiled, with K1's
+     a 2^18-lane pool and 2 iterations, gated, timed and profiled, with K1's
      launches a bounce inside the walk;
   19. main path, caustics VCM: the JAX package's bench config 5 (the glass
      torus over the Cornell floor, 1,060 triangles; `scene/caustics`) at
      256x256, spectral, max path length 16, by full VCM (`models/vcm.py`,
      default options: connections, merging with 16 photons a cell, 65,536
-     light paths an iteration): iteration 0 warms up, iterations 1-3 are
+     light paths an iteration): iteration 0 warms up, iterations 1-2 are
      timed through `render_iteration_stats` (seconds and rays an
      iteration, Mrays/s), every trace through K3/K4; gated (finite, the
      light layer's luminance >= 0 and the image's mean luminance > 0, mean
@@ -129,7 +130,7 @@ Phases, one line each with its elapsed seconds:
      whose 256x128 image and 64x64 sun disk the host marches in numpy,
      seen through a thin lens) at 512x512, spectral, max path length 8, a
      2^18-lane pool, by `bench.py:_pt_mrays`'s protocol (8 warm iterations,
-     then 2 timed repetitions of 8): staging, warm-up and timed seconds,
+     then 1 timed repetition of 8): staging, warm-up and timed seconds,
      rays, Mrays/s and K1/K2 launches; gated (finite, no negative
      luminance, mean luminance within +-10% of the port's 128x128 CPU
      render); profiled as phase 13's path is; then K1 and K2 on the
@@ -144,17 +145,18 @@ Phases, one line each with its elapsed seconds:
      random-walk and Christensen-Burley SSS (2 spp each) and fog with a
      Boundary cube and a radiance clamp (4 spp) renders on the card against
      the CPU; and the VCM slice's 32x32 renders on the card against the CPU:
-     VCM (without the per-cell cap) and light tracing on the diffuse Cornell
-     box (4 iterations), caustics VCM (spectral, without the cap, 2
-     iterations, through K3/K4) and volumetric BDPT (2 iterations, through
+     VCM (without the per-cell cap, 2 iterations) and light tracing (4) on
+     the diffuse Cornell box, caustics VCM (spectral, without the cap, 1
+     iteration, through K3/K4) and volumetric BDPT (2 iterations, through
      K1); and the image slice's: VCM (without the cap) and BDPT on the
      environment-lit floor (4 iterations), a Cornell box through a lens
      shaped by an image and bench config 3 (its staged sky, spectral) by
      path tracing (4 spp each), all through K1/K2;
      and the shading slice's: the all-classes showcase by path tracing with
      blue noise (2 spp) and by VCM (without the per-cell cap, at a merge
-     radius that keeps every cell within the glossy merge's 32 photons, 1
-     iteration), both through K3/K4, and the specular-box Cornell (a glass
+     radius that keeps every cell within the glossy merge's 32 photons,
+     path length 4, 1 iteration), both through K3/K4, and the specular-box
+     Cornell (a glass
      tall box, a mirror short box) by path tracing (4 spp, K1/K2);
   22b. main path, shading showcase (run before phase 22): the all-classes
      showcase (`tests/shading_showcase.py`: nine icospheres of order 2 in
@@ -163,13 +165,28 @@ Phases, one line each with its elapsed seconds:
      roughness and normal-map images, Mirror, the two rough-diffuse
      variations, Void and an alpha-cut Diffuse; 2,916 triangles) at
      512x512, max path length 16, a 2^18-lane pool, blue noise, by
-     `_pt_mrays`'s protocol shortened to 2 warm iterations and 2 timed
-     repetitions of 2: staging, warm-up and timed seconds, rays, Mrays/s
+     `_pt_mrays`'s protocol shortened to 2 warm iterations and 1 timed
+     repetition of 2: staging, warm-up and timed seconds, rays, Mrays/s
      and K3/K4 launches (every trace through K3/K4); gated (finite, no
      negative luminance, mean luminance within +-10% of the port's 64x64
      CPU render); then K3 and K4 on the closest-hit and shadow rays of its
-     bounce 2, captured, held bit-equal to their plain versions and timed;
-     and one iteration at 256x256 profiled as phase 13's path is;
+     bounce 2, captured, held bit-equal to their plain versions and timed
+     (its kernels a bounce are in PERF.md §5);
+  22c. the CLI (run before phase 22): the Cornell scene files that
+     `scene/assets.py` writes (the Cornell box with the silver tall box, 36
+     triangles, 640x640, 32 spp, path length 1023): `python3 -m
+     etx_tracer_tpu_torch.cli render` in a subprocess (path tracing through
+     K1/K2; its launch counts from its log), then `cli.main` with
+     `--adaptive --spp 64` (32 warm spp by the scatter pool, then four
+     batches of 8 over the active-pixel map) and with the normals and
+     albedo AOVs (one K1 launch each), the launch counts set to 0 before
+     each and read after; each EXR read back with `utils/image_io` and
+     gated (finite, >= 0, red left third, green right third, mean within
+     +-10% of the port's 64x64 CPU render); the seconds, rays and active
+     pixels of each batch printed; then `active_pixel_map` card against
+     CPU on the CPU's 32 warm spp of the files at 32x32 (equal maps), and
+     one mapped batch of 8 spp from that map and those sums on both,
+     within the end-to-end tolerances;
   23. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
@@ -193,6 +210,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -201,18 +220,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from etx_tracer_tpu_torch import cli
 from etx_tracer_tpu_torch.core import spectrum
 from etx_tracer_tpu_torch.models import path_tracing, vcm
 from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.render import film as film_mod
-from etx_tracer_tpu_torch.scene import atmosphere, bigscene, caustics, cornell, materials
+from etx_tracer_tpu_torch.scene import assets, atmosphere, bigscene, caustics, cornell
+from etx_tracer_tpu_torch.scene import json_scene, materials
 from etx_tracer_tpu_torch.scene import volumetric
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import builder as scene_builder
 from etx_tracer_tpu_torch.scene import spectral_data
 from etx_tracer_tpu_torch.scene import types as scene_types
+from etx_tracer_tpu_torch.utils import image_io
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -240,14 +262,13 @@ GOLDEN_RTOL = 2e-3
 KERNEL_ATOL = 1e-6
 
 RAYS = 1 << 18
-# rays of a K1/K2 check case against thousands of triangles, where the plain
-# versions' per-triangle loops are slow (seconds a call at 2^16 x 15,396)
+# rays of a K1/K2 check case against thousands of triangles (the plain
+# versions test every pair: about a second a call at 2^16 x 15,396)
 FEW_RAYS = 1 << 16
 # rays of a BVH kernel's lane patterns: the plain walk's time grows with its
 # longest walk, about a second a call on the card
 BVH_LANE_RAYS = 1 << 14
-# K1/K2's lane patterns run on tables of at most this many triangles: their
-# plain versions loop over the triangles, seconds a call at 15,396
+# K1/K2's lane patterns run on tables of at most this many triangles
 BRUTE_LANE_TRIS = 1024
 # ... and K9a/K9b's on tables of at most this many (all but bigscene's)
 WOOP_LANE_TRIS = 4096
@@ -256,8 +277,9 @@ NARROW = (1 << 12, 1 << 14, 1 << 16)
 # ... and K9a/K9b's, against the materials scene
 WOOP_NARROW = (1 << 12, 1 << 14)
 ITERATIONS = 64  # Cornell main-path samples per pixel: one chunk of the JAX package's bench
-# materials main path: one `_pt_mrays` call of the JAX package's bench
-MATERIALS_ITERATIONS = 8
+# materials main path: one `_pt_mrays` call of the JAX package's bench at half
+# its 8 iterations
+MATERIALS_ITERATIONS = 4
 # the materials image mean at 512x512, 8 spp must lie in this range: the
 # port's CPU render of the scene in tests/test_torch_materials.py (16x16,
 # 2 spp) has mean 0.0666, and that test holds it inside this range, which is
@@ -286,8 +308,8 @@ VOLUMETRIC_ITERATIONS = 8
 # this range is that mean +-10%
 VOLUMETRIC_MEAN = (0.01861, 0.02274)
 # subsurface main path: test_sss_render's configuration at the volumetric
-# film, 4 iterations
-SUBSURFACE_ITERATIONS = 4
+# film, 2 iterations (the test's 4, halved)
+SUBSURFACE_ITERATIONS = 2
 # ... and its mean: the port's CPU render at 64x64, 4 spp, 0.065555 (the same
 # script; the JAX package's 0.065557), +-10%
 SUBSURFACE_MEAN = (0.05900, 0.07211)
@@ -296,7 +318,7 @@ SUBSURFACE_MEAN = (0.05900, 0.07211)
 # `models/vcm.py`: iteration 0 warms up, iterations 1..VCM_TIMED are timed
 # (`bench.py:_vcm_iter_stats`)
 VCM_SIZE = (256, 256)
-VCM_TIMED = 3
+VCM_TIMED = 2
 # their image means after iterations 0..VCM_TIMED must lie in these ranges:
 # the port's CPU render of each path at 128x128 and as many iterations
 # (`python -m tests.vcm_reference_means 128`), +-10%: caustics VCM 0.070216,
@@ -332,24 +354,25 @@ CAUSTICS_PROFILE_SIZE = (128, 128)
 # photons a cell, chosen in the same order
 _UNCAPPED = vcm.VCMOptions(max_photons_per_cell=1 << 20)
 VCM_E2E = (
-    ("VCM Cornell", lambda d: cornell_scene((32, 32), 6, d), _UNCAPPED, 4,
+    ("VCM Cornell 32x32", lambda d: cornell_scene((32, 32), 6, d), _UNCAPPED, 2,
      ("intersect", "occluded")),
-    ("light-tracing Cornell", lambda d: cornell_scene((32, 32), 6, d),
+    ("light-tracing Cornell 32x32", lambda d: cornell_scene((32, 32), 6, d),
      vcm.light_tracing_options(), 4, ("intersect", "occluded")),
-    ("caustics VCM spectral", lambda d: caustics.build_caustics_scene((32, 32)).build(device=d),
-     _UNCAPPED, 2, ("intersect_brute2", "occluded_brute2")),
-    ("volumetric BDPT", lambda d: volumetric.volumetric((32, 32)).build(device=d),
+    ("caustics VCM spectral 32x32",
+     lambda d: caustics.build_caustics_scene((32, 32)).build(device=d),
+     _UNCAPPED, 1, ("intersect_brute2", "occluded_brute2")),
+    ("volumetric BDPT 32x32", lambda d: volumetric.volumetric((32, 32)).build(device=d),
      vcm.bdpt_options(), 2, ("intersect",)),
-    ("env-lit floor VCM", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
+    ("env-lit floor VCM 32x32", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
      _UNCAPPED, 4, ("intersect", "occluded")),
-    ("env-lit floor BDPT", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
+    ("env-lit floor BDPT 32x32", lambda d: atmosphere.env_floor_scene((32, 32)).build(device=d),
      vcm.bdpt_options(), 4, ("intersect", "occluded")))
 # bench config 3 (the atmosphere: sun, sky, thin lens, spectral) at the
 # bench's film by `bench.py:_pt_mrays`'s protocol: ATMOSPHERE_ITERATIONS
 # warm iterations, then ATMOSPHERE_REPS timed repetitions of as many
 ATMOSPHERE_SIZE = (512, 512)
 ATMOSPHERE_ITERATIONS = 8
-ATMOSPHERE_REPS = 2
+ATMOSPHERE_REPS = 1
 # its mean luminance after the last repetition must lie in this range: the
 # port's CPU render at 128x128, 8 spp, 0.2546339 (the JAX package's
 # 0.2546315; at 64x64 both 0.2533538, so the mean has settled; `python -m
@@ -375,7 +398,7 @@ MEDIA_E2E = (
 # iterations, then SHOWCASE_REPS timed repetitions of as many
 SHOWCASE_SIZE = (512, 512)
 SHOWCASE_ITERATIONS = 2
-SHOWCASE_REPS = 2
+SHOWCASE_REPS = 1
 SHOWCASE_CLASSES = (0, 1, 2, 3, 6, 8, 9, 10)
 SHOWCASE_TRIANGLES = 36 + 9 * 320
 # its mean luminance after the last repetition must lie in this range: the
@@ -390,10 +413,25 @@ SHOWCASE_MEAN = (0.06340, 0.07749)
 # merge through the BSDF dispatch, and an over-full cell would give it its
 # first 32 photons in the order of a hash of their positions' last bits)
 SHOWCASE_VCM = vcm.VCMOptions(max_photons_per_cell=1 << 20, initial_radius=0.02)
-# the showcase's profiled iteration: its kernels a bounce do not depend on
-# the film, and at 512x512 the profiler's records of its ~54,000 kernels a
-# bounce take a minute to read
-SHOWCASE_PROFILE_SIZE = (256, 256)
+# the CLI phase: the Cornell scene files (`scene/assets.py`: the Cornell box
+# with the silver tall box, 36 triangles) at their own 640x640, 32 spp and
+# path length 1023, through `python -m etx_tracer_tpu_torch.cli render`;
+# then `--adaptive --spp 64` (32 warm spp by the scatter pool, then batches
+# of 8 over the active-pixel map) and two debug AOVs through `cli.main`.
+# Each image's mean must lie within +-10% of the port's CPU render of the
+# same command at 64x64 (`python -m tests.cli_reference_means`, which
+# prints the JAX package's beside it): pt 0.0736629, adaptive 0.0740793,
+# normals 0.5495412, albedo 0.7155893
+CLI_SPP, CLI_ADAPTIVE_SPP = 32, 64
+CLI_PT_MEAN = (0.06630, 0.08103)
+CLI_ADAPTIVE_MEAN = (0.06667, 0.08149)
+CLI_DEBUG_MEANS = {"normals": (0.49459, 0.60450), "albedo": (0.64403, 0.78715)}
+# the adaptive map and one mapped batch, card against CPU, on the CPU's
+# 32 warm spp of the scene files at this size and path length (the files'
+# 1023 takes a minute of the host's CPU at 32x32)
+CLI_MAP_SIZE = (32, 32)
+CLI_MAP_PATH_LENGTH = 8
+CLI_MAP_THRESHOLD = 0.5
 
 
 def _shading_showcase():
@@ -416,15 +454,17 @@ def showcase_scene(film, dev, max_path_length=16):
 
 # the 32x32 card-vs-CPU renders of the shading slice: (label, builder,
 # options (None: path tracing), spp or iterations, kernels that must launch);
-# the showcase's VCM render is cut to path length 6 (at 16 its iteration
-# takes minutes on the CPU: every lane runs every lobe, the VCM passes'
-# at each stored vertex and merged photon)
+# the showcase's VCM render is cut to path length 4 (at 16 its iteration
+# takes minutes on the CPU: every lane runs every lobe, the VCM passes' at
+# each stored vertex and merged photon; at 16x16 one outlier pixel moves
+# the mean by 0.42%, near the 0.5% bound)
 SHADING_E2E = (
-    ("shading showcase spectral blue noise", lambda d: showcase_scene((32, 32), d), None, 2,
+    ("shading showcase spectral blue noise 32x32", lambda d: showcase_scene((32, 32), d), None, 2,
      ("intersect_brute2", "occluded_brute2")),
-    ("shading showcase VCM mpl 6", lambda d: showcase_scene((32, 32), d, max_path_length=6),
+    ("shading showcase VCM mpl 4 32x32",
+     lambda d: showcase_scene((32, 32), d, max_path_length=4),
      SHOWCASE_VCM, 1, ("intersect_brute2", "occluded_brute2")),
-    ("specular-box Cornell", lambda d: cornell.build_cornell_box(
+    ("specular-box Cornell 32x32", lambda d: cornell.build_cornell_box(
         (32, 32), max_path_length=8, specular_boxes=True).build(device=d), None, 4,
      ("intersect", "occluded")))
 T0 = time.perf_counter()
@@ -887,18 +927,25 @@ def kernel_phase(name, dev, rng, cases, timed):
     tris = geometry[0]
     rays = test_rays(rng, *tris, num_r, dev, inside)
     masks = (None, torch.from_numpy(rng.uniform(size=tris[0].shape[0]) > 0.25).to(dev))
+    lanes = not ((mod is brute_trace and tris[0].shape[0] > BRUTE_LANE_TRIS)
+                 or (mod is woop_trace and tris[0].shape[0] > WOOP_LANE_TRIS))
+    n_lane = BVH_LANE_RAYS if mod is bvh_trace else FEW_RAYS
     for mask in masks:
-      e, frac = compare(name, geometry, rays, mask)
+      patterns = lane_variants(rays, n_lane) if lanes else {}
+      refs = {}
+      if mod is bvh_trace:
+        # a plain walk takes as long as its longest walk: one call for the
+        # rays and all their lane patterns
+        refs = plain_per_pattern(name, geometry, {"all": rays, **patterns}, mask)
+      e, frac = compare(name, geometry, rays, mask, refs.pop("all", None))
       err = max(err, e)
       say(name, f"{label} tris={tris[0].shape[0]} rays={num_r} masked={mask is not None} "
           f"hit fraction {frac:.4f}: matches the plain version")
-      if ((mod is brute_trace and tris[0].shape[0] > BRUTE_LANE_TRIS)
-          or (mod is woop_trace and tris[0].shape[0] > WOOP_LANE_TRIS)):
+      if not lanes:
         continue
       fracs = []
-      n_lane = BVH_LANE_RAYS if mod is bvh_trace else FEW_RAYS
-      patterns = lane_variants(rays, n_lane)
-      refs = plain_per_pattern(name, geometry, patterns, mask)
+      if not refs:
+        refs = plain_per_pattern(name, geometry, patterns, mask)
       for variant, lane_rays in patterns.items():
         e, frac = compare(name, geometry, lane_rays, mask, refs[variant])
         err = max(err, e)
@@ -1152,19 +1199,16 @@ def device_summary(prof):
 
 def profile_step_mix(label, scene, config, dev):
   """Where a main-path bounce spends its time: one iteration under the
-  profiler. Prints bounces, kernels launched and host reads per bounce, the
-  device's busy share of the wall time and the kernels that take most of
-  the device time."""
+  profiler, its bounces and host reads counted as it runs. Prints bounces,
+  kernels launched and host reads per bounce, the device's busy share of
+  the wall time and the kernels that take most of the device time."""
   from torch.profiler import ProfilerActivity, profile
-  with Counting() as counted:
-    path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
-    torch.cuda.synchronize()
-  steps = counted.bounces
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA]) as prof, Counting() as counted:
     t0 = time.perf_counter()
     path_tracing.render_samples_static(scene, config, 0, 1, pool_size=1 << 18, device=dev)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+  steps = counted.bounces
   busy_us, launched, by_name = device_summary(prof)
   say("profile", f"{label} 1 spp: {steps} bounces, {wall_ms:.1f} ms wall, device busy "
       f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.3f} of wall), "
@@ -1266,22 +1310,20 @@ def main_path_volumetric_bdpt(scene, config, dev):
 
 
 def profile_vcm(label, scene, config, options, dev):
-  """One more iteration of a VCM-family path counted (bounces of both
-  passes, host reads), then one under the profiler: wall time, the
-  device's busy share, kernels a bounce and the kernels that take most of
-  the device time."""
+  """One more iteration of a VCM-family path under the profiler, its
+  bounces (of both passes) and host reads counted as it runs: wall time,
+  the device's busy share, kernels a bounce and the kernels that take most
+  of the device time."""
   from torch.profiler import ProfilerActivity, profile
   fs = film_mod.allocate(config.film_width, config.film_height, dev)
-  with Counting(((vcm, "_light_step"), (vcm, "_camera_step"))) as counted:
+  t0 = time.perf_counter()
+  with (profile(activities=[ProfilerActivity.CUDA]) as prof,
+        Counting(((vcm, "_light_step"), (vcm, "_camera_step"))) as counted):
+    t1 = time.perf_counter()
     vcm.render_iteration(scene, config, options, fs, VCM_TIMED + 1, device=dev)
     torch.cuda.synchronize()
-  steps = counted.bounces
-  t0 = time.perf_counter()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    t1 = time.perf_counter()
-    vcm.render_iteration(scene, config, options, fs, VCM_TIMED + 2, device=dev)
-    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t1) * 1e3
+  steps = counted.bounces
   busy_us, launched, by_name = device_summary(prof)
   say("profile", f"{label}, one iteration: {steps} bounces (light and camera), {wall_ms:.1f} ms "
       f"wall, device busy {busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.3f} of wall), "
@@ -1790,11 +1832,160 @@ def end_to_end(atmosphere_32):
     check(counts["intersect"] > 0, f"the {label} 32x32 render never launched the intersect kernel")
   for label, make, options, iterations, want in VCM_E2E + SHADING_E2E:
     reset_counts()
-    card_vs_cpu(f"{label} 32x32 {iterations} iterations", make, iterations, options)
+    card_vs_cpu(f"{label} {iterations} iterations", make, iterations, options)
     counts = read_counts()
     launched = {k: n for k, n in counts.items() if n}
     say("e2e", f"{label}: launches {launched}")
     check(set(launched) == set(want), f"the {label} 32x32 render launched {launched}, not {want}")
+
+
+def gate_cli_image(label, path, bounds, size):
+  """An EXR the CLI wrote, read back: finite, of the film's size, >= 0, its
+  mean inside `bounds`, red left third and green right third."""
+  img = image_io.load_exr(str(path))
+  check(img.shape == (size[1], size[0], 3), f"{label}: image shape {img.shape}")
+  check(bool(np.isfinite(img).all()), f"{label}: image has non-finite values")
+  return gate_mean(label, img, bounds)
+
+
+class Rays:
+  """Sums, while it is entered, the rays that the PT drivers `names` of
+  `path_tracing` return, and records the active-pixel count of each map."""
+
+  def __init__(self, names=("render_samples", "render_samples_mapped")):
+    self.names = names
+
+  def __enter__(self):
+    self.rays, self.active = 0, []
+    self._saved = {name: getattr(path_tracing, name)
+                   for name in (*self.names, "active_pixel_map")}
+
+    def counted(fn):
+      def driver(*args, **kwargs):
+        sums, rays = fn(*args, **kwargs)
+        self.rays += int(rays.item())
+        return sums, rays
+      return driver
+
+    def mapped(*args, **kwargs):
+      pmap, n_active = self._saved["active_pixel_map"](*args, **kwargs)
+      self.active.append(int(n_active.item()))
+      return pmap, n_active
+
+    for name in self.names:
+      setattr(path_tracing, name, counted(self._saved[name]))
+    path_tracing.active_pixel_map = mapped
+    return self
+
+  def __exit__(self, *exc):
+    for name, fn in self._saved.items():
+      setattr(path_tracing, name, fn)
+
+
+def cli_adaptive_card_vs_cpu(scene_file, dev):
+  """The adaptive render's map and one mapped batch, card against CPU: the
+  CPU's 32 warm spp of the scene files at CLI_MAP_SIZE and
+  CLI_MAP_PATH_LENGTH, its map at
+  CLI_MAP_THRESHOLD built on the card and on the CPU from those sums (equal
+  ids and count), then one batch of 8 spp over that map from those sums on
+  both (the sample counts equal, the sums within the end-to-end
+  tolerances: index_add on the card adds a pixel's rows in atomic order)."""
+  b = json_scene.load_scene(scene_file)
+  b.film_size, b.max_path_length = CLI_MAP_SIZE, CLI_MAP_PATH_LENGTH
+  scene, config = b.build(device="cpu")
+  width, npix = CLI_MAP_SIZE[0], CLI_MAP_SIZE[0] * CLI_MAP_SIZE[1]
+  sums, _ = path_tracing.render_samples(scene, config, 0, 32, device="cpu")
+  pmap, n_cpu = path_tracing.active_pixel_map(sums, width, CLI_MAP_THRESHOLD)
+  card_sums = path_tracing.FilmSums(sums.table.to(dev))
+  card_map, n_card = path_tracing.active_pixel_map(card_sums, width, CLI_MAP_THRESHOLD)
+  check(int(n_card.item()) == int(n_cpu) and torch.equal(card_map.cpu(), pmap),
+        "active_pixel_map: the card's map differs from the CPU's on the same sums")
+  check(0 < int(n_cpu) < npix, f"the {width}x{width} map at {CLI_MAP_THRESHOLD} is not "
+        f"partial: {int(n_cpu)} of {npix} pixels active")
+  cpu, _ = path_tracing.render_samples_mapped(scene, config, pmap, 32, 8, sums, device="cpu")
+  card, _ = path_tracing.render_samples_mapped(scene, config, pmap, 32, 8, sums, device=dev)
+  got, want = card.table.cpu().numpy(), cpu.table.numpy()
+  check(np.array_equal(got[:, 12:14], want[:, 12:14]),
+        "render_samples_mapped: sample counts differ between the card and the CPU")
+  for lo, hi, layer in ((0, 3, "camera"), (3, 6, "normals"), (6, 9, "albedo"),
+                        (9, 12, "variance")):
+    shape = (CLI_MAP_SIZE[1], CLI_MAP_SIZE[0], 3)
+    same_image("cli", f"render_samples_mapped {width}x{width} {layer} sums, card vs CPU",
+               got[:, lo:hi].reshape(shape), want[:, lo:hi].reshape(shape))
+  say("cli", f"active_pixel_map {width}x{width} at {CLI_MAP_THRESHOLD}: card equal to the CPU on "
+      f"the CPU's 32 warm spp ({int(n_cpu)} of {npix} pixels active)")
+
+
+def cli_phase(dev):
+  """The CLI on the Cornell scene files: PT through the module entry in a
+  subprocess (its launch counts from its log), then `--adaptive` and two
+  debug AOVs through `cli.main` in this process with the launch counts set
+  to 0 before each and read after. Each EXR is read back and gated. Then
+  the adaptive map and a mapped batch card against CPU. Returns
+  {run: launch counts}."""
+  work = Path(_build.BUILD_DIR) / "cli"
+  shutil.rmtree(work, ignore_errors=True)
+  work.mkdir(parents=True)
+  os.environ["ETX_TPU_CONFIG_DIR"] = str(work / "prefs")
+  scene_file = assets.write_cornell_asset(str(work / "scene"))
+  b = json_scene.load_scene(scene_file)
+  size = b.film_size
+  check(size == (640, 640) and b.samples == CLI_SPP and b.max_path_length == 1023,
+        f"scene files: {size}, {b.samples} spp, path length {b.max_path_length}")
+  out = {}
+
+  pt_exr = work / "pt.exr"
+  t0 = time.perf_counter()
+  proc = subprocess.run([sys.executable, "-m", "etx_tracer_tpu_torch.cli", "render", scene_file,
+                         "-o", str(pt_exr)], cwd=str(Path(__file__).resolve().parent),
+                        capture_output=True, text=True, timeout=600)
+  seconds = time.perf_counter() - t0
+  check(proc.returncode == 0, f"cli render exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+  for line in proc.stderr.splitlines():
+    say("cli", f"  {line}")
+  found = re.search(r"trace kernel launches: (\{.*\})", proc.stderr)
+  check(found is not None, "cli render printed no launch counts")
+  launched = json.loads(found.group(1))
+  counts = {"intersect": launched.get("brute_trace.intersect", 0),
+            "occluded": launched.get("brute_trace.occluded", 0)}
+  check(counts["intersect"] > 0 and counts["occluded"] > 0
+        and set(launched) == {"brute_trace.intersect", "brute_trace.occluded"},
+        f"cli render: the PT path launched {launched}, not K1 and K2")
+  mean = gate_cli_image("cli render (pt)", pt_exr, CLI_PT_MEAN, size)
+  say("cli", f"python -m etx_tracer_tpu_torch.cli render {size[0]}x{size[1]} {CLI_SPP} spp: "
+      f"{seconds:.3f} s of subprocess (interpreter, imports, scene files and render), launches "
+      f"K1 {counts['intersect']} / K2 {counts['occluded']}, image mean {mean:.5f}")
+  out["pt"] = counts
+
+  runs = [("adaptive", ["--adaptive", "--spp", str(CLI_ADAPTIVE_SPP)], CLI_ADAPTIVE_MEAN),
+          *((f"debug {aov}", ["--integrator", "debug", "--aov", aov], CLI_DEBUG_MEANS[aov])
+            for aov in ("normals", "albedo"))]
+  for label, extra, bounds in runs:
+    exr = work / f"{label.replace(' ', '_')}.exr"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Rays() as rays:
+      cli.main(["render", scene_file, "-o", str(exr), *extra])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    launched = {k: n for k, n in counts.items() if n}
+    mean = gate_cli_image(f"cli render ({label})", exr, bounds, size)
+    if label == "adaptive":
+      check(counts["intersect"] > 0 and counts["occluded"] > 0 and set(launched) <= {
+          "intersect", "occluded"}, f"cli render --adaptive launched {launched}")
+      check(len(rays.active) == (CLI_ADAPTIVE_SPP - 32) // 8 and all(rays.active),
+            f"adaptive batches: active pixels {rays.active}")
+      detail = (f"{rays.rays} rays, {rays.rays / seconds / 1e6:.3f} Mrays/s, active pixels a "
+                f"batch {rays.active}")
+    else:
+      check(launched == {"intersect": 1}, f"cli render ({label}) launched {launched}, not one K1")
+      detail = "one closest-hit launch"
+    say("cli", f"cli.main render {' '.join(extra)} {size[0]}x{size[1]}: {seconds:.3f} s, "
+        f"{detail}, launches {launched}, image mean {mean:.5f}")
+    out[label] = counts
+  cli_adaptive_card_vs_cpu(scene_file, dev)
+  return out
 
 
 def micro_phase(dev):
@@ -1920,13 +2111,12 @@ def main() -> int:
   caustics_geo = (list(caustics_scene[:3]), None)
   # cases: (label, geometry, origin box, rays); the dispatch thresholds are
   # 128 (K1/K2) and 4096 (K3/K4) triangles, the kernels take any count
-  small = [("cornell", cornell_geo, None, RAYS),
-           ("soup128", (tri_soup(rng, 128, dev), None), None, RAYS),
-           ("materials", mat_geo, ROOM, FEW_RAYS),
-           ("bigscene", big_geo, ROOM, FEW_RAYS)]
+  soup128 = ("soup128", (tri_soup(rng, 128, dev), None), None, RAYS)
   soup4096 = ("soup4096", (tri_soup(rng, 4096, dev), None), None, RAYS)
   soup129 = ("soup129", (tri_soup(rng, 129, dev), None), None, RAYS)
   soup4097 = ("soup4097", (tri_soup(rng, 4097, dev), None), None, RAYS)
+  small = [("cornell", cornell_geo, None, RAYS), soup128,
+           ("materials", mat_geo, ROOM, FEW_RAYS), ("bigscene", big_geo, ROOM, FEW_RAYS)]
   pair_tile = [("materials", mat_geo, ROOM, RAYS), soup4096, soup4097, soup129,
                ("cornell", cornell_geo, None, RAYS), ("bigscene", big_geo, ROOM, RAYS)]
   woop = [("materials", mat_geo, ROOM, RAYS), ("caustics", caustics_geo, ROOM, RAYS),
@@ -2004,7 +2194,7 @@ def main() -> int:
   showcase_512, counts_show = main_path_showcase(dev)
   captured_phase("shading showcase", ("intersect_brute2", "occluded_brute2"), *showcase_512, dev)
   del showcase_512
-  profile_step_mix("shading showcase 256x256", *showcase_scene(SHOWCASE_PROFILE_SIZE, dev), dev)
+  counts_cli = cli_phase(dev)
   # the staged sky and sun serve the 32x32 render too
   atmosphere_builder.film_size = (32, 32)
   end_to_end(atmosphere_builder)
@@ -2042,6 +2232,8 @@ def main() -> int:
   say("kernels", f"K1/K2 launches on the atmosphere path {counts_atm['intersect']} / "
       f"{counts_atm['occluded']} ({ATMOSPHERE_ITERATIONS} warm + {ATMOSPHERE_REPS} x "
       f"{ATMOSPHERE_ITERATIONS} spp); on its bounce {CAPTURE_BOUNCE}: {rows_atm}")
+  say("kernels", "K1/K2 launches on the CLI paths (the Cornell scene files, 640x640): "
+      + ", ".join(f"{run} {c['intersect']} / {c['occluded']}" for run, c in counts_cli.items()))
   say("kernels", f"K3/K4 launches on the shading showcase path "
       f"{counts_show['intersect_brute2']} / {counts_show['occluded_brute2']} "
       f"({SHOWCASE_ITERATIONS} warm + {SHOWCASE_REPS} x {SHOWCASE_ITERATIONS} spp)")

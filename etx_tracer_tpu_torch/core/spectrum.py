@@ -280,3 +280,10 @@ class SpectralDistribution:
 
   def maximum_power(self) -> float:
     return float(self.values.max())
+
+  def scale(self, factor: float) -> "SpectralDistribution":
+    """Scale in place (the grid values and the integrated RGB)."""
+    self.values *= factor
+    if self._integrated is not None:
+      self._integrated = self._integrated * factor
+    return self

@@ -247,9 +247,11 @@ def _trace_transmittance(scene, rng_state, medium, from_pos, to_pos, wl, spectra
   return tr, rng_state
 
 
-def pt_step(scene, config, state: PTState) -> PTState:
-  """One wavefront bounce. Without media or a radiance clamp
-  (`uses_deferred_nee`) the NEE is deferred: this step's path rays and the
+def pt_step(scene, config, state: PTState, deferred: bool | None = None) -> PTState:
+  """One wavefront bounce. With `deferred` (default: `uses_deferred_nee`,
+  no media and no radiance clamp; the per-iteration, scatter-pool and
+  mapped drivers pass False, as their JAX counterparts take the JAX
+  `pt_step`'s default) the NEE is deferred: this step's path rays and the
   previous step's shadow rays are traced, the resolved contribution is
   reported via res_rgb/res_valid and this step's shadow ray becomes the new
   pending one. Otherwise each step traces its own shadow rays (through
@@ -262,7 +264,8 @@ def pt_step(scene, config, state: PTState) -> PTState:
   dev = state.ray_o.device
   spectral = config.spectral
   classes = config.material_classes
-  deferred = uses_deferred_nee(config)
+  if deferred is None:
+    deferred = uses_deferred_nee(config)
   if spectral:
     # every SPD at each lane's wavelength, once per bounce: the queries of
     # this bounce at state.wl read it instead of the bank
@@ -587,6 +590,11 @@ class FilmSums(NamedTuple):
 
 
 _SUMS_WIDTH = 14
+# lanes of a pool unless the caller says: the main path's 2^18 (the JAX
+# package's drivers default to 2^17, sized for the TPU); a sample's stream
+# keys off its pixel and iteration only, so the pool sets the float order of
+# a pixel's sums and the number of steps, not the samples
+POOL_SIZE = 1 << 18
 # pt_steps between two host reads of the loop condition (as the JAX loop
 # body runs 4 steps between two tests of its condition)
 _UNROLL = 4
@@ -624,7 +632,7 @@ def _nee_row(rgb, valid, meta):
 
 
 def render_samples_static(scene, config, first_iteration: int, num_iterations: int,
-                          pool_size: int = 1 << 17, device=None):
+                          pool_size: int = POOL_SIZE, device=None):
   """Render num_iterations spp with a fixed pool; returns (FilmSums, rays).
 
   Lane q owns pixels slot*p_base + q % p_base; films smaller than the pool
@@ -782,12 +790,230 @@ def finalize_film(sums: FilmSums, iterations: int, width: int) -> film_mod.FilmS
       iteration=torch.tensor(iterations, dtype=torch.int32, device=sums.table.device))
 
 
-def render(scene, config, iterations: int | None = None, pool_size: int = 1 << 17,
+def render_stats(scene, config, iterations: int | None = None, pool_size: int = POOL_SIZE,
+                 device=None):
+  """`render`, also returning the rays traced: (FilmState, rays)."""
+  n = config.samples if iterations is None else iterations
+  sums, rays = render_samples_static(
+      scene, config, 0, n,
+      pool_size=min(pool_size, config.film_width * config.film_height * n), device=device)
+  return finalize_film(sums, n, config.film_width), rays
+
+
+def render(scene, config, iterations: int | None = None, pool_size: int = POOL_SIZE,
            device=None) -> film_mod.FilmState:
   """Render `iterations` spp (default: config.samples) on `device` (default:
   the CUDA card, which must exist)."""
-  n = config.samples if iterations is None else iterations
-  sums, _ = render_samples_static(
-      scene, config, 0, n,
-      pool_size=min(pool_size, config.film_width * config.film_height * n), device=device)
-  return finalize_film(sums, n, config.film_width)
+  return render_stats(scene, config, iterations, pool_size, device)[0]
+
+
+# ---------------------------------------------------------------------------
+# One lane per pixel: the per-iteration driver.
+# ---------------------------------------------------------------------------
+
+
+def make_payload(scene, config, iteration: int, device=None) -> PTState:
+  """The payload of one full-film iteration, one lane per pixel."""
+  device = resolve_device(device)
+  r = config.film_width * config.film_height
+  ids = torch.arange(r, dtype=torch.int64, device=device) + iteration * r
+  return make_lane_payload(scene, config, ids, (iteration + 1) * r)
+
+
+def _finalize(scene, config, film_state: film_mod.FilmState, state: PTState):
+  """Fold one full-film iteration's lanes into the film's running means."""
+  w, h = config.film_width, config.film_height
+  color = _lane_color(scene, config, state)
+  albedo = spx.to_film_rgb(state.view_albedo, state.wl, config.spectral)
+  return film_mod.accumulate_camera(film_state, color.reshape(h, w, 3),
+                                    state.view_normal.reshape(h, w, 3), albedo.reshape(h, w, 3))
+
+
+def render_iteration_stats(scene, config, film_state: film_mod.FilmState, iteration: int,
+                           device=None):
+  """One full-film iteration, each lane running until its path ends (every
+  step traces its own shadow rays); returns (film, rays traced)."""
+  device = resolve_device(device)
+  scene = st.to_device(scene, device)
+  state = make_payload(scene, config, iteration, device)
+  while bool(state.alive.any().item()):
+    for _ in range(_UNROLL):
+      state = pt_step(scene, config, state, deferred=False)
+  return _finalize(scene, config, film_state, state), state.rays_traced
+
+
+def render_iteration(scene, config, film_state: film_mod.FilmState, iteration: int,
+                     device=None) -> film_mod.FilmState:
+  """One full-film sample-per-pixel iteration; returns the updated film."""
+  return render_iteration_stats(scene, config, film_state, iteration, device)[0]
+
+
+# ---------------------------------------------------------------------------
+# The scatter pool: a lane that finishes adds its row to the film table and
+# takes the next sample id, so the pool stays full for any path length. The
+# adaptive render draws its pixels from a map through the same pool.
+# ---------------------------------------------------------------------------
+
+
+def _empty_sums(w: int, h: int, device) -> FilmSums:
+  return FilmSums(torch.zeros((h * w, _SUMS_WIDTH), device=device))
+
+
+def _scatter_pool(scene, config, payload_for, base: int, total: int, sums: FilmSums,
+                  pool_size: int):
+  """Run the regenerating pool over sample ids base .. base+total-1, lanes
+  built by payload_for(ids, end); each step's finished lanes add their rows
+  to `sums` (index_add: on the card the adds of one pixel land in atomic
+  order). Returns (FilmSums, rays)."""
+  device = sums.table.device
+  p = min(pool_size, total)
+  end = base + total
+  state = payload_for(base + torch.arange(p, dtype=torch.int64, device=device), end)
+  counter = torch.tensor(base + p, dtype=torch.int64, device=device)
+  table = sums.table
+
+  def body_once(state, counter, table):
+    new_state = pt_step(scene, config, state, deferred=False)
+    died = state.alive & ~new_state.alive
+    color = _lane_color(scene, config, new_state)
+    px = torch.where(died, new_state.pixel, 0)
+    dmask = died[..., None].to(torch.float32)
+    even = (died & ((new_state.sample_iter % 2) == 0))[..., None].to(torch.float32)
+    alb = spx.to_film_rgb(new_state.view_albedo, new_state.wl, config.spectral)
+    row = torch.cat([color * dmask, new_state.view_normal * dmask, alb * dmask,
+                     color * even, dmask, even], dim=-1)
+    table = table.index_add(0, px, row)
+    # regenerate finished lanes with the next sample ids (prefix-sum ranks)
+    new_ids = counter + torch.cumsum(died.to(torch.int64), 0) - 1
+    fresh = payload_for(torch.where(died, new_ids, 0), end)
+    regen = died & (new_ids < end)
+    merged = _pick(regen, fresh, new_state)
+    merged = merged._replace(alive=torch.where(died, regen, new_state.alive),
+                             rays_traced=new_state.rays_traced)
+    return merged, counter + died.sum(), table
+
+  while bool(state.alive.any().item()):
+    for _ in range(_UNROLL):
+      state, counter, table = body_once(state, counter, table)
+  return FilmSums(table), state.rays_traced
+
+
+def render_samples(scene, config, first_iteration: int, num_iterations: int,
+                   pool_size: int = POOL_SIZE, device=None):
+  """Render num_iterations spp with the regenerating scatter pool; returns
+  (FilmSums, rays). Lane seeds depend only on (pixel, iteration), never on
+  the pool's schedule."""
+  device = resolve_device(device)
+  scene = st.to_device(scene, device)
+  npix = config.film_width * config.film_height
+  lens = camera_mod.lens_of(scene.camera)
+
+  def payload_for(ids, end):
+    return make_lane_payload(scene, config, ids, end, lens)
+
+  return _scatter_pool(scene, config, payload_for, first_iteration * npix,
+                       npix * num_iterations,
+                       _empty_sums(config.film_width, config.film_height, device), pool_size)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive sampling: after a minimum budget, only pixels whose full/half
+# buffer deviation exceeds the noise threshold (dilated by a 5 px block)
+# keep receiving samples; the pool draws pixel ids from an active-pixel map
+# instead of raster order.
+# ---------------------------------------------------------------------------
+
+_ADAPTIVE_MIN_SAMPLES = 32
+_ADAPTIVE_DILATION = 5
+# sample ids of a mapped pass seed the RNG with the pixel plus this offset
+_MAP_SEED = 0x85EBCA6B
+
+
+def render_samples_mapped(scene, config, pixel_map: torch.Tensor, first_iteration: int,
+                          num_iterations: int, sums: FilmSums, pool_size: int = POOL_SIZE,
+                          device=None):
+  """render_samples over a pixel map (the adaptive phase), adding to `sums`.
+
+  pixel_map: (W*H,) — sample k goes to pixel pixel_map[k % npix]; the RNG is
+  seeded by the unique sample id and the pixel, so repeated pixels stay
+  decorrelated. Returns (FilmSums, rays)."""
+  device = resolve_device(device)
+  scene = st.to_device(scene, device)
+  w, h = config.film_width, config.film_height
+  npix = w * h
+  lens = camera_mod.lens_of(scene.camera)
+  pixel_map = pixel_map.to(device=device, dtype=torch.int64)
+
+  def payload_for(sample_ids, end):
+    pix = pixel_map[sample_ids % npix]
+    base = make_lane_payload(scene, config, sample_ids, end, lens)
+    state = rng.seed(sample_ids, (pix + _MAP_SEED) & 0xFFFFFFFF)
+    state, wl_rnd = rng.next_float(state)
+    wl = spmod.sample_wavelength(wl_rnd) if config.spectral else torch.zeros_like(wl_rnd)
+    state, jit_rnd = rng.next_2d(state)
+    uv = camera_mod.film_uv(pix % w, pix // w, w, h, jit_rnd - 0.5)
+    state, lens_rnd = rng.next_2d(state)
+    rays = camera_mod.generate_ray(scene.camera, uv, lens_rnd, lens, scene.images,
+                                   config.equirectangular)
+    return base._replace(ray_o=rays.o, ray_d=rays.d, t_min=rays.t_min, t_max=rays.t_max,
+                         rng_state=state, wl=wl, pixel=pix, sample_iter=sample_ids // npix)
+
+  return _scatter_pool(scene, config, payload_for, first_iteration * npix,
+                       npix * num_iterations, FilmSums(sums.table.to(device)), pool_size)
+
+
+def active_pixel_map(sums: FilmSums, width: int, threshold: float):
+  """Noise-driven pixel map: the unconverged pixel ids (5 px dilated) in
+  raster order, tiled so the map has npix entries. Returns (map, count of
+  active pixels as a 0-d tensor)."""
+  table = sums.table
+  dev = table.device
+  npix = table.shape[0]
+  h = npix // width
+  count = torch.clamp(sums.count, min=1.0)
+  vcount = torch.clamp(sums.var_count, min=1.0)
+  full_rgb = sums.cam_sum / count[..., None]
+  half_rgb = sums.var_sum / vcount[..., None]
+  # the luminance sums in the JAX reduction's order
+  lum_w = (0.212671, 0.715160, 0.072169)
+  full = full_rgb[:, 0] * lum_w[0] + full_rgb[:, 1] * lum_w[1] + full_rgb[:, 2] * lum_w[2]
+  half = half_rgb[:, 0] * lum_w[0] + half_rgb[:, 1] * lum_w[1] + half_rgb[:, 2] * lum_w[2]
+  noise = torch.abs(full - half) / torch.clamp(torch.abs(full), min=1e-4)
+  active = (noise > threshold).reshape(h, width)
+  k = _ADAPTIVE_DILATION
+  pad = k // 2
+  act = torch.nn.functional.pad(active, (pad, pad, pad, pad))
+  dil = torch.zeros_like(active)
+  for dy in range(k):
+    for dx in range(k):
+      dil = dil | act[dy:dy + h, dx:dx + width]
+  flat = dil.reshape(-1)
+  n_active = flat.to(torch.int64).sum()
+  # active pixels first, each group in raster order (a stable sort on an
+  # integer key)
+  ids = torch.argsort((~flat).to(torch.int32), stable=True)
+  idx = torch.arange(npix, device=dev) % torch.clamp(n_active, min=1)
+  return ids[idx], n_active
+
+
+def render_adaptive(scene, config, max_iterations: int | None = None, batch: int = 8,
+                    device=None) -> film_mod.FilmState:
+  """Progressive render with adaptive per-pixel termination: the first 32 spp
+  (or all, if fewer) by the scatter pool, then batches of `batch` spp over
+  the active-pixel map until max_iterations (default: config.samples) or
+  no pixel is active."""
+  device = resolve_device(device)
+  scene = st.to_device(scene, device)
+  n = config.samples if max_iterations is None else max_iterations
+  w = config.film_width
+  warm = min(_ADAPTIVE_MIN_SAMPLES, n)
+  sums, _ = render_samples(scene, config, 0, warm, device=device)
+  done = warm
+  while done < n:
+    k = min(batch, n - done)
+    pmap, n_active = active_pixel_map(sums, w, config.noise_threshold)
+    if int(n_active.item()) == 0:
+      break
+    sums, _ = render_samples_mapped(scene, config, pmap, done, k, sums, device=device)
+    done += k
+  return finalize_film(sums, done, w)

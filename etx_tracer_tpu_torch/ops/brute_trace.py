@@ -8,10 +8,11 @@ PyTorch version of the same signature beside it:
 - `occluded` (K2): any hit, the port of `pallas_trace.occluded_pallas`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. The plain versions mirror
-`etx_tracer_tpu/ops/trace.py:intersect_scan`'s per-triangle loop, expression
-by expression; the CPU tests hold them against the JAX package and
-`chip_smoke.py` holds each kernel against them on the card.
+launches the kernel or raises. The plain versions give the result of
+`etx_tracer_tpu/ops/trace.py:intersect_scan`'s per-triangle loop with its
+expressions, evaluated on tiles of rays x chunks of triangles; the CPU tests
+hold them against the JAX package and `chip_smoke.py` holds each kernel
+against them on the card.
 
 The kernels skip a ray that can have no valid pair (`dead_lanes`: an
 empty or NaN interval, or t_max < 0, as the main path's dead lanes and
@@ -36,6 +37,10 @@ import torch
 from etx_tracer_tpu_torch.ops import _build
 
 _MT_EPS = 1e-9
+# ray-triangle pairs a chunk of the plain versions holds: on the CPU a
+# chunk's temporaries stay in cache (past 2^14 rays a chunk is one
+# triangle), on the card a chunk takes fewer launches
+_PAIRS = {"cpu": 1 << 14, "cuda": 1 << 22}
 
 launches = {"intersect": 0, "occluded": 0}
 
@@ -63,12 +68,18 @@ def dead_lanes(t_min, t_max):
   return ~(t_min <= t_max) | (t_max < 0.0)
 
 
-def _tri_rows(tri_v0, tri_e1, tri_e2, tri_mask):
-  """Per-triangle Python floats (exact copies of the float32 values) and
-  mask flags."""
-  rows = torch.cat([tri_v0, tri_e1, tri_e2], dim=1).tolist()
-  mask = [True] * len(rows) if tri_mask is None else [bool(m) for m in tri_mask.tolist()]
-  return rows, mask
+def _tri_chunks(tri_v0, tri_e1, tri_e2, tri_mask, num_r):
+  """(triangle indices (C,) int32, nine (1, C) rows: v0, e1, e2 by
+  component) per chunk of the triangles the mask keeps, in index order, a
+  chunk of at most _PAIRS ray-triangle pairs."""
+  rows = torch.cat([tri_v0, tri_e1, tri_e2], dim=1)
+  idx = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+  if tri_mask is not None:
+    idx = idx[tri_mask]
+    rows = rows[tri_mask]
+  step = max(1, _PAIRS.get(rows.device.type, _PAIRS["cuda"]) // max(num_r, 1))
+  for c0 in range(0, rows.shape[0], step):
+    yield idx[c0:c0 + step], rows[c0:c0 + step].t().unsqueeze(1).unbind(0)
 
 
 def _mt(row, ox, oy, oz, dx, dy, dz, t_min, t_max):
@@ -95,38 +106,45 @@ def _mt(row, ox, oy, oz, dx, dy, dz, t_min, t_max):
 
 
 def intersect_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> Hit:
-  """Closest hit by a loop over the triangles carrying the running best;
-  the lowest index wins a tie (strict t < best_t)."""
+  """Closest hit, the lowest index winning a tie: the result of a loop over
+  the triangles carrying the running best with strict t < best_t, taken
+  over chunks of triangles (each pair's expressions are the loop's): a
+  chunk's lowest index with the least t, then strict < across chunks."""
   num_r = o.shape[0]
-  rows, mask = _tri_rows(tri_v0, tri_e1, tri_e2, tri_mask)
-  ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-  dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-  live = t_max >= 0.0
+  ray = [x[:, None] for x in (*o.unbind(1), *d.unbind(1), t_min, t_max)]
+  live = (t_max >= 0.0)[:, None]
   best_t = torch.full((num_r,), float("inf"), dtype=torch.float32, device=o.device)
   best_tri = torch.full((num_r,), -1, dtype=torch.int32, device=o.device)
   best_u = torch.zeros(num_r, dtype=torch.float32, device=o.device)
   best_v = torch.zeros(num_r, dtype=torch.float32, device=o.device)
-  for ti, row in enumerate(rows):
-    if not mask[ti]:
-      continue
-    ok, t, u, v = _mt(row, ox, oy, oz, dx, dy, dz, t_min, t_max)
-    ok = ok & (t < best_t) & live
-    best_t = torch.where(ok, t, best_t)
-    best_tri = torch.where(ok, ti, best_tri)
-    best_u = torch.where(ok, u, best_u)
-    best_v = torch.where(ok, v, best_v)
+  for idx, row in _tri_chunks(tri_v0, tri_e1, tri_e2, tri_mask, num_r):
+    ok, t, u, v = _mt(row, *ray)
+    ok = ok & live
+    if t.shape[1] == 1:
+      tri = idx
+      ok, t, u, v = ok[:, 0], t[:, 0], u[:, 0], v[:, 0]
+    else:
+      # the chunk's lowest index with its least valid t (none: inf, taken by
+      # no ray, as no t < inf is)
+      least = torch.where(ok, t, float("inf")).amin(dim=1, keepdim=True)
+      first = (ok & (t == least)).to(torch.uint8).argmax(dim=1, keepdim=True)
+      tri = idx[first[:, 0]]
+      ok = least[:, 0] < float("inf")
+      t, u, v = (x.gather(1, first)[:, 0] for x in (t, u, v))
+    take = ok & (t < best_t)
+    best_t = torch.where(take, t, best_t)
+    best_tri = torch.where(take, tri, best_tri)
+    best_u = torch.where(take, u, best_u)
+    best_v = torch.where(take, v, best_v)
   return Hit(best_t, best_tri, best_u, best_v)
 
 
 def occluded_plain(tri_v0, tri_e1, tri_e2, o, d, t_min, t_max, tri_mask=None) -> torch.Tensor:
   """Any hit with t in [t_min, t_max], OR-accumulated over the triangles."""
-  rows, mask = _tri_rows(tri_v0, tri_e1, tri_e2, tri_mask)
-  ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-  dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+  ray = [x[:, None] for x in (*o.unbind(1), *d.unbind(1), t_min, t_max)]
   occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-  for ti, row in enumerate(rows):
-    if mask[ti]:
-      occ = occ | _mt(row, ox, oy, oz, dx, dy, dz, t_min, t_max)[0]
+  for _, row in _tri_chunks(tri_v0, tri_e1, tri_e2, tri_mask, o.shape[0]):
+    occ = occ | _mt(row, *ray)[0].any(dim=1)
   return occ & (t_max >= 0.0)
 
 

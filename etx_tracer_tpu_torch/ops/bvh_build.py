@@ -167,16 +167,23 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> dict:
     best_cost, best_bin = np.inf, -1
     lo = tri_min[ids]
     hi = tri_max[ids]
+    # each bin's bounds, then the bounds of bins [0, b) and [b, _BINS) by
+    # running min / max (exact, so the split is the per-split masks' own)
+    bin_lo = np.full((_BINS, 3), np.inf, lo.dtype)
+    bin_hi = np.full((_BINS, 3), -np.inf, hi.dtype)
+    np.minimum.at(bin_lo, bins, lo)
+    np.maximum.at(bin_hi, bins, hi)
+    left_lo, left_hi = np.minimum.accumulate(bin_lo), np.maximum.accumulate(bin_hi)
+    right_lo = np.minimum.accumulate(bin_lo[::-1])[::-1]
+    right_hi = np.maximum.accumulate(bin_hi[::-1])[::-1]
+    left_n = np.cumsum(np.bincount(bins, minlength=_BINS))
     for b in range(1, _BINS):
-      left_mask = bins < b
-      nl = int(left_mask.sum())
+      nl = int(left_n[b - 1])
       nr = len(ids) - nl
       if nl == 0 or nr == 0:
         continue
-      lmin = lo[left_mask].min(axis=0)
-      lmax = hi[left_mask].max(axis=0)
-      rmin = lo[~left_mask].min(axis=0)
-      rmax = hi[~left_mask].max(axis=0)
+      lmin, lmax = left_lo[b - 1], left_hi[b - 1]
+      rmin, rmax = right_lo[b], right_hi[b]
 
       def area(mn, mx):
         d = np.maximum(mx - mn, 0.0)

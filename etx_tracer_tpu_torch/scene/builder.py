@@ -132,6 +132,7 @@ class SceneBuilder:
     self.camera_equirectangular = False
     self.samples = 256
     self.max_path_length = 65535
+    self.min_path_length = 0
     self.rr_start = 6
     self.radiance_clamp = 0.0
     self.noise_threshold = 0.1
@@ -181,6 +182,14 @@ class SceneBuilder:
         "build_cdf": build_cdf, "offset": offset,
         "u_scale": u_scale, "uniform": uniform})
     return len(self.images) - 1
+
+  def add_image_file(self, path: str, build_cdf: bool = False,
+                     offset=(0.0, 0.0), u_scale: float = 1.0,
+                     srgb_to_linear: bool = True) -> int:
+    """Stage an image file (EXR, HDR or PNG; `utils/image_io.load_image`)."""
+    from etx_tracer_tpu_torch.utils import image_io
+    return self.add_image(image_io.load_image(path, srgb_to_linear),
+                          build_cdf=build_cdf, offset=offset, u_scale=u_scale)
 
   def add_mesh(self, positions, indices, material: int, normals=None, uvs=None):
     self.positions.append(np.asarray(positions, np.float32).reshape(-1, 3))

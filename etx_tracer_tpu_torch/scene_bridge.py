@@ -1,8 +1,12 @@
-"""Scene tables carried across from the JAX package, as numpy arrays.
+"""Scene tables and film state carried across from the JAX package, as
+numpy arrays.
 
 Tests feed both packages the identical scene: they flatten the JAX
 `DeviceScene` into numpy arrays keyed by dotted field path and hand those,
-with the JAX `SceneConfig`'s fields, to `from_numpy`. This module takes
+with the JAX `SceneConfig`'s fields, to `from_numpy`; the JAX `FilmSums`
+table and `FilmState` layers go across the same way (`film_sums_from_numpy`,
+`film_state_from_numpy`), so both packages start a pass from the same sums
+or the same film. This module takes
 numpy arrays and plain values only, never a JAX object, and the port's own
 render path does not use it: it builds its scenes with `scene/builder.py`.
 """
@@ -11,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
 
 from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.ops import bvh_build
@@ -47,3 +53,23 @@ def from_numpy(arrays, config_fields, device=None):
   config = st.SceneConfig(**{k: v for k, v in config_fields.items() if k in names})
   arrays = {**arrays, **bvh_build.kernel_tables(arrays)}
   return st.scene_from_arrays(arrays, device), config
+
+
+def film_sums_from_numpy(table, device=None):
+  """A `models.path_tracing.FilmSums` from a (H*W, 14) array (the JAX
+  `FilmSums.table`), as float32 on `device` (default: the CUDA card)."""
+  from etx_tracer_tpu_torch.models.path_tracing import FilmSums
+  return FilmSums(torch.as_tensor(np.array(table, np.float32), device=resolve_device(device)))
+
+
+def film_state_from_numpy(layers, device=None):
+  """A `render.film.FilmState` from a mapping of its field names to arrays
+  (the JAX `FilmState._asdict()`): the (H,W,3) layers as float32, the
+  iteration count as int32, on `device` (default: the CUDA card)."""
+  from etx_tracer_tpu_torch.render.film import FilmState
+  device = resolve_device(device)
+  return FilmState(**{
+      name: torch.as_tensor(np.array(layers[name],
+                                       np.int32 if name == "iteration" else np.float32),
+                            device=device)
+      for name in FilmState._fields})

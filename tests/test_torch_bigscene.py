@@ -57,7 +57,7 @@ from etx_tracer_tpu_torch.render import film as pfilm
 from etx_tracer_tpu_torch.scene import bigscene, materials
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests.test_torch_render import assert_bvh_holds_tree
-from tests.test_torch_trace import T_ATOL, T_RTOL, UV_ATOL, _all_hits, _rays, _tris
+from tests.test_torch_trace import T_ATOL, T_RTOL, UV_ATOL, _all_hits_at, _rays, _tris
 
 torch.set_num_threads(1)
 
@@ -100,6 +100,12 @@ def port_scene():
   return bigscene.build_bigscene(FILM).build(device="cpu")
 
 
+@pytest.fixture(scope="module")
+def port_arrays():
+  """The port builder's bigscene tables and config (`SceneBuilder.arrays`)."""
+  return bigscene.build_bigscene(FILM).arrays()
+
+
 def _torch(*xs):
   return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
 
@@ -129,10 +135,9 @@ def _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, mask, step=128):
   for r0 in range(0, o.shape[0], step):
     sl = slice(r0, r0 + step)
     args = (v0, e1, e2, o[sl], d[sl], t_min[sl], t_max[sl], mask)
-    ties.append(_near_tie(_all_hits(*args)))
-    loose = np.isfinite(_all_hits(*args, 1e-5))
-    strict = np.isfinite(_all_hits(*args, -1e-5))
-    graze.append((loose != strict).any(axis=1))
+    hits, loose, strict = _all_hits_at(*args, (1e-6, 1e-5, -1e-5))
+    ties.append(_near_tie(hits))
+    graze.append((np.isfinite(loose) != np.isfinite(strict)).any(axis=1))
   return np.concatenate(ties), np.concatenate(graze)
 
 
@@ -147,11 +152,11 @@ def _room_rays(rng, v0, e2, n):
 
 
 @pytest.mark.parametrize("which", ["soup", "bigscene"])
-def test_bvh_build_equals_jax_numpy_builder(monkeypatch, which):
+def test_bvh_build_equals_jax_numpy_builder(monkeypatch, request, which):
   if which == "soup":
     v0, e1, e2 = _tris(np.random.default_rng(30), 3000)
   else:
-    arrays, _ = bigscene.build_bigscene(FILM).arrays()
+    arrays, _ = request.getfixturevalue("port_arrays")
     v0, e1, e2 = (arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2"))
     assert v0.shape == (bigscene.NUM_TRIANGLES, 3)
   _numpy_tree(monkeypatch)
@@ -293,8 +298,28 @@ def test_fat_and_node_walks_agree():
 # ----------------------------------------------- against JAX on bigscene
 
 
+@pytest.fixture(scope="module")
+def room_walks(port_scene):
+  """2,048 rays inside the room, their ties and grazing rays, and the
+  port's four plain walks on them (fat and node trees, closest and any
+  hit): one set for both JAX trees."""
+  scene = port_scene[0]
+  v0, e1, e2 = (x.numpy() for x in scene[:3])
+  rng = np.random.default_rng(45)
+  o, d, t_min, t_max = _room_rays(rng, v0, e2, 2048)
+  rays = _torch(o, d, t_min, t_max)
+  tie, grazing = _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, np.ones(v0.shape[0], bool))
+  walks = []
+  for closest, occluded in _PLAIN.values():
+    bvh = scene.bvh if closest is bvh_trace.intersect_fat_plain else \
+        ptypes.without_fat_rows(scene.bvh)
+    walks.append((closest(bvh, *rays), occluded(bvh, *rays).numpy()))
+  return (o, d, t_min, t_max), tie, grazing, walks
+
+
 @pytest.mark.parametrize("jax_tree", ["default", "numpy"])
-def test_bvh_plain_matches_jax_cpu_route_on_bigscene(monkeypatch, port_scene, jax_tree):
+def test_bvh_plain_matches_jax_cpu_route_on_bigscene(monkeypatch, port_scene, room_walks,
+                                                     jax_tree):
   """The JAX package's CPU route (`intersect_bvh`) on bigscene: on its
   default tree (whichever builder loaded) t agrees and `tri` where the
   nearest hit is not tied; on its numpy tree, the port's own, also."""
@@ -304,19 +329,12 @@ def test_bvh_plain_matches_jax_cpu_route_on_bigscene(monkeypatch, port_scene, ja
     _numpy_tree(monkeypatch)
   jscene = types.SimpleNamespace(tri_v0=jnp.asarray(v0), tri_e1=jnp.asarray(e1),
                                  tri_e2=jnp.asarray(e2), bvh=_jax_bvh(v0, e1, e2))
-  rng = np.random.default_rng(45)
-  o, d, t_min, t_max = _room_rays(rng, v0, e2, 2048)
-  jrays = [jnp.asarray(x) for x in (o, d, t_min, t_max)]
+  rays, tie, grazing, walks = room_walks
+  jrays = [jnp.asarray(x) for x in rays]
   ref = jtrace.trace_closest(jscene, *jrays)
   rocc = np.asarray(jtrace.trace_occluded(jscene, *jrays))
-  rays = _torch(o, d, t_min, t_max)
-  tie, grazing = _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, np.ones(v0.shape[0], bool))
   rtri = np.asarray(ref.tri)
-  for closest, occluded in _PLAIN.values():
-    bvh = scene.bvh if closest is bvh_trace.intersect_fat_plain else \
-        ptypes.without_fat_rows(scene.bvh)
-    got = closest(bvh, *rays)
-    occ = occluded(bvh, *rays).numpy()
+  for got, occ in walks:
     gtri = got.tri.numpy()
     clean = ~tie & ~grazing
     assert clean.mean() > 0.8
@@ -362,8 +380,8 @@ def test_dense_kernels_at_any_count_agree_with_the_bvh_on_bigscene(port_scene):
 # ------------------------------------------------------- scene and render
 
 
-def test_bigscene_tables_equal_jax(jax_scene):
-  arrays, config = bigscene.build_bigscene(FILM).arrays()
+def test_bigscene_tables_equal_jax(jax_scene, port_arrays):
+  arrays, config = port_arrays
   want = _jax_arrays(jax_scene[0])
   assert set(arrays) <= set(want)
   assert {k for k in want if k.startswith("bvh.")} == {k for k in arrays if k.startswith("bvh.")}

@@ -369,12 +369,16 @@ def test_iteration_zero_parts_from_jax_only_through_the_corner_rays(scenes):
   assert differ.shape[0] > 0
   assert ((px == py) | (px + py == FILM[0] - 1)).all(), differ
 
+  # the JAX package's states after each bounce, stepped once for both checks
+  jstates = [jst0]
+
   def parted(pst):
-    jst = jst0
-    for _ in range(STEPS):
-      jst = jpt.pt_step(jscene, jconfig, jst, deferred_nee=False)
+    for step in range(STEPS):
+      if len(jstates) == step + 1:
+        jstates.append(jpt.pt_step(jscene, jconfig, jstates[step], deferred_nee=False))
       pst = ppt.pt_step(pscene, pconfig, pst)
-      if (pst.rng_state.numpy().astype(np.uint32) != np.asarray(jst.rng_state)).any():
+      want = np.asarray(jstates[step + 1].rng_state)
+      if (pst.rng_state.numpy().astype(np.uint32) != want).any():
         return True
     return False
 

@@ -431,6 +431,7 @@ class Block(importlib.abc.MetaPathFinder):
     return None
 
 sys.meta_path.insert(0, Block())
+import numpy as np
 import torch
 torch.set_num_threads(1)
 import chip_smoke
@@ -441,9 +442,11 @@ from etx_tracer_tpu_torch.scene import cornell
 scene, config = cornell.build_cornell_box(film_size=(8, 8), max_path_length=4).build(device="cpu")
 img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import trace
 from etx_tracer_tpu_torch.scene import bigscene, types
-big, _ = bigscene.build_bigscene((8, 8)).build(device="cpu")
+big = micro.scene("bigscene", "cpu")  # built once, for micro.run too
+assert big.tri_v0.shape == (bigscene.NUM_TRIANGLES, 3)
 o = torch.tensor([[0.0, 1.0, 0.0]] * 4)
 d = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0]])
 t0, t1 = torch.full((4,), 1e-4), torch.full((4,), 1e30)
@@ -452,7 +455,6 @@ assert bool(hit.found.all())
 slim = big._replace(bvh=types.without_fat_rows(big.bvh))
 assert torch.equal(trace.trace_occluded(slim, o, d, t0, t1), hit.found)
 assert "etx_tracer_tpu_torch.ops.bvh_trace" in sys.modules
-from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.scene import caustics
 cs, _ = caustics.build_caustics_scene((8, 8)).build(device="cpu")
@@ -462,15 +464,15 @@ assert woop.t.shape == (4,) and woop_trace.launches == {"intersect": 0, "occlude
 lines = micro.run("trace_sorted", "cpu", 64)
 assert [x.label for x in lines] == ["fat+sort bounce", "fat+sort random"]
 from etx_tracer_tpu_torch.scene import volumetric
-for b in (volumetric.volumetric((8, 8)), volumetric.subsurface_cornell((8, 8))):
-  scene, config = b.build(device="cpu")
+cloud, cloud_config = volumetric.volumetric((8, 8)).build(device="cpu")
+for scene, config in ((cloud, cloud_config),
+                      volumetric.subsurface_cornell((8, 8)).build(device="cpu")):
   assert config.has_media or config.has_subsurface
   img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
   assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 from etx_tracer_tpu_torch.models import vcm
 scene, config = cornell.build_cornell_box(film_size=(8, 8), diffuse_only=True,
                                           max_path_length=4).build(device="cpu")
-cloud, cloud_config = volumetric.volumetric((8, 8)).build(device="cpu")
 from etx_tracer_tpu_torch.render import images
 from etx_tracer_tpu_torch.scene import atmosphere
 sky = atmosphere.atmosphere_scene((8, 8), sky_size=(8, 4)).build(device="cpu")
@@ -498,6 +500,23 @@ img = film.result_image(vcm.render(show, show_config, vcm.VCMOptions(initial_rad
                                    iterations=1, device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert spectral_data.led(3000.0).values.max() > 0 and "multiscatter" in multiscatter.__name__
+import os, tempfile
+from etx_tracer_tpu_torch import cli
+from etx_tracer_tpu_torch.models import debug
+from etx_tracer_tpu_torch.render import denoiser
+from etx_tracer_tpu_torch.scene import assets, gltf_loader
+from etx_tracer_tpu_torch.utils import image_io
+work = tempfile.mkdtemp(dir=os.environ["XDG_CACHE_HOME"])
+os.environ["ETX_TPU_CONFIG_DIR"] = work
+scene_file = assets.write_cornell_asset(work)
+for extra in ([], ["--adaptive", "--spp", "3"], ["--integrator", "debug", "--aov", "albedo"]):
+  out = os.path.join(work, "out.exr")
+  cli.main(["render", scene_file, "-o", out, "--size", "8x8", "--max-path", "3", "--spp", "1",
+            "--device", "cpu"] + extra)
+  img = image_io.load_exr(out)
+  assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0
+fs = path_tracing.render_adaptive(scene, config, max_iterations=2, device="cpu")
+assert denoiser.denoise_film(fs).shape == (8, 8, 3) and debug.DebugMode.Count == 18
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")

@@ -70,10 +70,11 @@ def _rays(rng, v0, e2, n):
   return o, d, t_min, t_max
 
 
-def _all_hits(v0, e1, e2, o, d, t_min, t_max, mask, slack=1e-6):
-  """(R, T) hit distances (inf where no hit) in float64, with each bound of
-  the hit test moved outward by `slack` (inward when negative), scaled up
-  where a small determinant magnifies float32 rounding in u, v and t."""
+def _all_hits_at(v0, e1, e2, o, d, t_min, t_max, mask, slacks):
+  """(R, T) hit distances (inf where no hit) in float64 for each slack in
+  `slacks`, with each bound of the hit test moved outward by the slack
+  (inward when negative), scaled up where a small determinant magnifies
+  float32 rounding in u, v and t. The geometry is computed once."""
   v0, e1, e2, o, d = (x.astype(np.float64) for x in (v0, e1, e2, o, d))
   p = np.cross(d[:, None, :], e2[None])
   det = np.sum(p * e1[None], -1)
@@ -83,19 +84,31 @@ def _all_hits(v0, e1, e2, o, d, t_min, t_max, mask, slack=1e-6):
   q = np.cross(tv, e1[None])
   v = np.sum(q * d[:, None, :], -1) * inv
   t = np.sum(q * e2[None], -1) * inv
-  s = slack * (1.0 + 1e-2 / np.maximum(np.abs(det), 1e-9))
-  st = s * np.maximum(1.0, np.abs(t))
-  ok = ((np.abs(det) > 1e-9) & (u >= -s) & (v >= -s) & (u + v <= 1 + s)
-        & (t >= t_min[:, None] - st) & (t <= t_max[:, None] + st) & mask[None])
-  return np.where(ok, t, np.inf)
+  del p, tv, q
+  base = (np.abs(det) > 1e-9) & mask[None]
+  scale = 1.0 + 1e-2 / np.maximum(np.abs(det), 1e-9)
+  t_scale = np.maximum(1.0, np.abs(t))
+  out = []
+  for slack in slacks:
+    s = slack * scale
+    st = s * t_scale
+    ok = (base & (u >= -s) & (v >= -s) & (u + v <= 1 + s)
+          & (t >= t_min[:, None] - st) & (t <= t_max[:, None] + st))
+    out.append(np.where(ok, t, np.inf))
+  return out
+
+
+def _all_hits(v0, e1, e2, o, d, t_min, t_max, mask, slack=1e-6):
+  """(R, T) hit distances (inf where no hit) in float64, with each bound of
+  the hit test moved outward by `slack` (`_all_hits_at`)."""
+  return _all_hits_at(v0, e1, e2, o, d, t_min, t_max, mask, (slack,))[0]
 
 
 def _grazing(v0, e1, e2, o, d, t_min, t_max, mask):
   """Rays that pass within 1e-5 of an edge of some triangle or of an end of
   their interval: the hit test of that triangle may go either way."""
-  loose = np.isfinite(_all_hits(v0, e1, e2, o, d, t_min, t_max, mask, 1e-5))
-  strict = np.isfinite(_all_hits(v0, e1, e2, o, d, t_min, t_max, mask, -1e-5))
-  return (loose != strict).any(axis=1)
+  loose, strict = _all_hits_at(v0, e1, e2, o, d, t_min, t_max, mask, (1e-5, -1e-5))
+  return (np.isfinite(loose) != np.isfinite(strict)).any(axis=1)
 
 
 def _jax_hit(v0, e1, e2, o, d, t_min, t_max, mask):
@@ -170,6 +183,30 @@ def test_occluded_agrees_with_closest_hit():
   occ = brute_trace.occluded_plain(*args)
   hit = brute_trace.intersect_plain(*args)
   assert torch.equal(occ, hit.found)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_versions_give_the_same_bits_at_every_chunk_width(monkeypatch, masked):
+  """K1/K2's plain versions take chunks of triangles at once: a chunk of
+  one triangle is the per-triangle loop, and every width gives its bits,
+  exact ties (duplicated triangles) to the lowest index."""
+  rng = np.random.default_rng(6 + masked)
+  v0, e1, e2 = _tris(rng, 60)
+  v0[40:50], e1[40:50], e2[40:50] = v0[:10], e1[:10], e2[:10]
+  args = _torch(v0, e1, e2, *_rays(rng, v0, e2, 512))
+  mask = torch.from_numpy(rng.uniform(size=60) > 0.3) if masked else None
+  outs = []
+  for pairs in (512, 512 * 7, 512 * 64, 1 << 14):
+    monkeypatch.setattr(brute_trace, "_PAIRS", {"cpu": pairs, "cuda": pairs})
+    hit = brute_trace.intersect_plain(*args, tri_mask=mask)
+    outs.append(([x.view(torch.int32) for x in (hit.t, hit.u, hit.v)] + [hit.tri],
+                 brute_trace.occluded_plain(*args, tri_mask=mask)))
+  for got, occ in outs[1:]:
+    assert all(torch.equal(g, w) for g, w in zip(got, outs[0][0]))
+    assert torch.equal(occ, outs[0][1])
+  tri = outs[0][0][3]
+  dup = (tri >= 40) & (tri < 50)   # a duplicate wins only over a masked first
+  assert not dup.any() if mask is None else not mask[tri[dup].long() - 40].any()
 
 
 def test_dispatch_runs_plain_versions_on_cpu_and_counts_no_launch():

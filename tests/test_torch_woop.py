@@ -101,10 +101,11 @@ def _interpret_woop(v0, e1, e2, o, d, t_min, t_max, mask):
   return [np.asarray(x)[:n, 0] for x in hit], np.asarray(occ)[:n, 0] > 0.5
 
 
-def _woop_hits(v0, e1, e2, o, d, t_min, t_max, mask, slack):
-  """(R, T) Woop hit distances in float64 (inf where no hit), with every
-  test moved outward (slack > 0) or inward (slack < 0) by `|slack|` times
-  the magnitude of the float32 terms that make up its operands."""
+def _woop_hits_at(v0, e1, e2, o, d, t_min, t_max, mask, slacks):
+  """(R, T) Woop hit distances in float64 (inf where no hit) for each slack
+  in `slacks`, with every test moved outward (slack > 0) or inward (slack <
+  0) by `|slack|` times the magnitude of the float32 terms that make up its
+  operands. The terms are computed once."""
   f = np.float64
   v0, e1, e2, o, d = (x.astype(f) for x in (v0, e1, e2, o, d))
   n = np.cross(e1, e2)
@@ -118,30 +119,35 @@ def _woop_hits(v0, e1, e2, o, d, t_min, t_max, mask, slack):
   q = [d @ rk.T for rk in r]
   mw = [np.abs(o) @ np.abs(rk).T + np.abs(bk) for rk, bk in zip(r, b)]
   mq = [np.abs(d) @ np.abs(rk).T for rk in r]
-  e = abs(slack)
-  sgn = 1.0 if slack > 0 else -1.0
   with np.errstate(divide="ignore", invalid="ignore"):
-    t = -w[2] / np.where(q[2] != 0.0, q[2], 1.0)
-    dt = e * (mw[2] + np.abs(t) * mq[2]) / np.abs(np.where(q[2] != 0.0, q[2], 1.0))
+    q2 = np.where(q[2] != 0.0, q[2], 1.0)
+    t = -w[2] / q2
+    abs_t = np.abs(t)
+    m = [mw[k] + abs_t * mq[k] for k in range(3)]
     u = w[0] + t * q[0]
     v = w[1] + t * q[1]
-    du = e * (mw[0] + np.abs(t) * mq[0]) + np.abs(q[0]) * dt
-    dv = e * (mw[1] + np.abs(t) * mq[1]) + np.abs(q[1]) * dt
-    dt = dt + e * np.abs(t)
-    ok = (good[None] & (np.abs(q[2]) > 1e-7 - sgn * e * mq[2])
-          & (u >= -sgn * du) & (v >= -sgn * dv) & (u + v <= 1.0 + sgn * (du + dv))
-          & (t >= t_min[:, None] - sgn * dt) & (t <= t_max[:, None] + sgn * dt))
-  return np.where(ok, t, np.inf)
+    out = []
+    for slack in slacks:
+      e = abs(slack)
+      sgn = 1.0 if slack > 0 else -1.0
+      dt = e * m[2] / np.abs(q2)
+      du = e * m[0] + np.abs(q[0]) * dt
+      dv = e * m[1] + np.abs(q[1]) * dt
+      dt = dt + e * abs_t
+      ok = (good[None] & (np.abs(q[2]) > 1e-7 - sgn * e * mq[2])
+            & (u >= -sgn * du) & (v >= -sgn * dv) & (u + v <= 1.0 + sgn * (du + dv))
+            & (t >= t_min[:, None] - sgn * dt) & (t <= t_max[:, None] + sgn * dt))
+      out.append(np.where(ok, t, np.inf))
+  return out
 
 
 def _ties_and_grazing(v0, e1, e2, o, d, t_min, t_max, mask):
-  hits = _woop_hits(v0, e1, e2, o, d, t_min, t_max, mask, 1e-12)
+  hits, loose, strict = _woop_hits_at(v0, e1, e2, o, d, t_min, t_max, mask,
+                                      (1e-12, ROUNDING, -ROUNDING))
   srt = np.sort(hits, axis=1)
   with np.errstate(invalid="ignore"):
     tie = np.isfinite(srt[:, 1]) & (srt[:, 1] - srt[:, 0] <= 1e-4 * np.maximum(1.0, srt[:, 0]))
-  loose = np.isfinite(_woop_hits(v0, e1, e2, o, d, t_min, t_max, mask, ROUNDING))
-  strict = np.isfinite(_woop_hits(v0, e1, e2, o, d, t_min, t_max, mask, -ROUNDING))
-  return tie, (loose != strict).any(axis=1)
+  return tie, (np.isfinite(loose) != np.isfinite(strict)).any(axis=1)
 
 
 def _dead_lanes_interleaved(t_min, t_max):
