@@ -187,6 +187,26 @@ Phases, one line each with its elapsed seconds:
      CPU on the CPU's 32 warm spp of the files at 32x32 (equal maps), and
      one mapped batch of 8 spp from that map and those sums on both,
      within the end-to-end tolerances;
+  22d. the sharding slice (run before phase 22): `python3 -m
+     etx_tracer_tpu_torch.cli render --devices 2 --spp 8` on the Cornell
+     scene files in a subprocess (one card is visible: the CLI says so and
+     runs a NCCL world of 1), gated as 22c's PT; `python3 -m
+     etx_tracer_tpu_torch.cli view cornell --size 512x512` in a subprocess,
+     driven over HTTP (the first frame, 3 iterations, the result saved as
+     EXR and gated against the port's CPU mean, four layers as PNGs, an
+     orbit's 8x8-block preview and the restart, VCM), its launches from its
+     `/status`; the main path's Cornell (512x512, path length 1023, 8 spp)
+     by `parallel/mesh.render_samples_sharded` on 3 gloo ranks that share
+     the card (512 rows pad to 513; gloo's collectives on CUDA tensors
+     probed first) and on a NCCL world of 1, each held against the
+     single-device render of the same samples within the end-to-end
+     tolerances and gated, with each rank's seconds, rays and launches and
+     the seconds to spawn and join the ranks; bench config 5 by VCM on 2
+     gloo ranks sharing the card (one uncapped 32x32 iteration against the
+     single-device one, then 3 capped iterations at 256x256 gated as phase
+     19); the validating build on a 64x64 Cornell (launches and bounces
+     equal to the production build's, its extra seconds and host reads a
+     bounce; a NaN reflectance raises naming a `pt:` stage);
   23. micro: the micro-benchmark entry
      (`etx_tracer_tpu_torch/benchmarks/micro.py`) runs its four trace
      groups at full width (`trace`: K5 and K1 on 2^16 rays of three kinds
@@ -208,6 +228,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
@@ -226,6 +247,7 @@ from etx_tracer_tpu_torch.models import path_tracing, vcm
 from etx_tracer_tpu_torch.benchmarks import micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
+from etx_tracer_tpu_torch.parallel import mesh as pmesh
 from etx_tracer_tpu_torch.render import film as film_mod
 from etx_tracer_tpu_torch.scene import assets, atmosphere, bigscene, caustics, cornell
 from etx_tracer_tpu_torch.scene import json_scene, materials
@@ -234,7 +256,7 @@ from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import builder as scene_builder
 from etx_tracer_tpu_torch.scene import spectral_data
 from etx_tracer_tpu_torch.scene import types as scene_types
-from etx_tracer_tpu_torch.utils import image_io
+from etx_tracer_tpu_torch.utils import image_io, validate
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -432,6 +454,27 @@ CLI_DEBUG_MEANS = {"normals": (0.49459, 0.60450), "albedo": (0.64403, 0.78715)}
 CLI_MAP_SIZE = (32, 32)
 CLI_MAP_PATH_LENGTH = 8
 CLI_MAP_THRESHOLD = 0.5
+
+# the sharding slice: the main path's Cornell (512x512, path length 1023) at
+# 8 spp on 3 gloo ranks that share the card (512 rows pad to 513) and on a
+# NCCL world of 1; bench config 5 by VCM on 2 gloo ranks; --devices; the
+# viewer; the validating build
+SHARDED_SPP = 8
+SHARDED_GLOO_RANKS = 3
+SHARDED_VCM_RANKS = 2
+SHARDED_VCM_SMALL = (32, 32)
+SHARDED_VCM_ITERATIONS = 3
+SPAWN_TIMEOUT = 600.0
+DEVICES_SPP = 8
+# the viewer's scene (`cli view cornell`: the conductor tall box, path
+# length 8) at 512x512: +-10% of the port's 64x64 16-spp CPU mean 0.068885
+# (`python -m tests.viewer_reference_means`)
+VIEWER_SIZE = (512, 512)
+VIEWER_MEAN = (0.06200, 0.07577)
+VIEWER_ITERATIONS = 3
+VIEWER_TIMEOUT = 240.0
+VALIDATE_SIZE = (64, 64)
+VALIDATE_SPP = 4
 
 
 def _shading_showcase():
@@ -1922,7 +1965,7 @@ def cli_phase(dev):
   debug AOVs through `cli.main` in this process with the launch counts set
   to 0 before each and read after. Each EXR is read back and gated. Then
   the adaptive map and a mapped batch card against CPU. Returns
-  {run: launch counts}."""
+  ({run: launch counts}, the scene file)."""
   work = Path(_build.BUILD_DIR) / "cli"
   shutil.rmtree(work, ignore_errors=True)
   work.mkdir(parents=True)
@@ -1985,7 +2028,336 @@ def cli_phase(dev):
         f"{detail}, launches {launched}, image mean {mean:.5f}")
     out[label] = counts
   cli_adaptive_card_vs_cpu(scene_file, dev)
+  return out, scene_file
+
+
+# ---------------------------------------------------------------------------
+# The sharding slice: ranks, --devices, the viewer, the validating build
+# ---------------------------------------------------------------------------
+
+
+def gloo_collectives(mesh) -> dict:
+  """Which collectives gloo takes on this rank's CUDA tensors: {name: "ok"
+  or the first line of its error}. Every rank calls them in one order."""
+  import torch.distributed as dist
+  w = mesh.world
+  x = torch.arange(4, dtype=torch.float32, device=mesh.device) + mesh.rank
+  calls = {
+      "all_reduce": lambda: dist.all_reduce(x.clone()),
+      "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(w)], x),
+      "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+          torch.empty(4 * w, device=mesh.device), x),
+      "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+      "reduce": lambda: dist.reduce(x.clone(), dst=0),
+      "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(w)]
+                                    if mesh.rank == 0 else None, dst=0),
+      "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+          torch.empty(4, device=mesh.device), torch.ones(4 * w, device=mesh.device)),
+  }
+  out = {}
+  for name, call in calls.items():
+    try:
+      call()
+      torch.cuda.synchronize(mesh.device)
+      out[name] = "ok"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+      out[name] = str(e).strip().splitlines()[0][:120]
   return out
+
+
+def sharded_cornell_job(mesh, scene, config, spp: int) -> dict:
+  """A rank of the sharded Cornell phase: the wall time it started (after
+  joining the group), gloo's collectives on CUDA tensors where they apply,
+  then `mesh.render_samples_job`."""
+  started = time.time()
+  probe = (gloo_collectives(mesh) if mesh.backend == "gloo" and mesh.device.type == "cuda"
+           else None)
+  return pmesh.render_samples_job(mesh, scene, config, 0, spp) | {"started": started,
+                                                                   "collectives": probe}
+
+
+def sharded_vcm_job(mesh, small, big, iterations: int) -> dict:
+  """A rank of the sharded caustics phase: one uncapped iteration of the
+  small film, then `iterations` capped ones at full width."""
+  started = time.time()
+  uncapped = pmesh.iterations_job(mesh, *small, 0, 1, _UNCAPPED)
+  capped = pmesh.iterations_job(mesh, *big, 0, iterations, vcm.VCMOptions())
+  return {"started": started, "uncapped": uncapped, "capped": capped}
+
+
+def rank_lines(phase, label, ranks, t_launch):
+  """Print each rank's seconds, rays and launches and the seconds to spawn
+  and join their group."""
+  spawn = max(r["started"] for r in ranks) - t_launch
+  for r in ranks:
+    report = r.get("capped", r)
+    say(phase, f"{label} rank {report['rank']} ({report['device']}): "
+        f"{report['seconds']:.3f} s, " + (f"{r['rays']} rays, " if "rays" in r else "")
+        + f"launches {report['launches']}")
+  say(phase, f"{label}: {len(ranks)} rank(s) spawned and joined their group in {spawn:.3f} s")
+
+
+def sharded_cornell_phase(dev):
+  """The main path's Cornell at SHARDED_SPP spp through
+  `render_samples_sharded` on SHARDED_GLOO_RANKS gloo ranks that share the
+  card, then on a NCCL world of 1, each held against the single-device
+  render of the same samples on the card and gated. Returns the ranks'
+  K1/K2 launches by run."""
+  scene_cpu, config = cornell_scene((512, 512), 1023, "cpu")
+  scene = scene_types.to_device(scene_cpu, dev)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  sums, rays = path_tracing.render_samples_static(scene, config, 0, SHARDED_SPP,
+                                                  pool_size=1 << 18, device=dev)
+  single = path_tracing.finalize_film(sums, SHARDED_SPP, config.film_width).camera.cpu().numpy()
+  say("sharded", f"single-device cornell 512x512 {SHARDED_SPP} spp: "
+      f"{time.perf_counter() - t0:.3f} s, {int(rays.item())} rays")
+  del scene, sums
+  torch.cuda.empty_cache()
+  out = {}
+  for label, backend, world in ((f"gloo x{SHARDED_GLOO_RANKS} on one card", "gloo",
+                                 SHARDED_GLOO_RANKS), ("nccl x1", "nccl", 1)):
+    t_launch = time.time()
+    ranks = pmesh.launch(sharded_cornell_job, world, backend, ["cuda:0"] * world, SPAWN_TIMEOUT,
+                         args=(scene_cpu, config, SHARDED_SPP))
+    wall = time.time() - t_launch
+    rank_lines("sharded", f"cornell {label}", ranks, t_launch)
+    if ranks[0]["collectives"] is not None:
+      say("sharded", f"gloo collectives on CUDA tensors: {ranks[0]['collectives']}")
+    for r in ranks:
+      check(set(r["launches"]) == {"brute_trace.intersect", "brute_trace.occluded"},
+            f"cornell {label} rank {r['rank']} launched {r['launches']}, not K1 and K2")
+    img = path_tracing.finalize_film(path_tracing.FilmSums(torch.from_numpy(ranks[0]["table"])),
+                                     SHARDED_SPP, config.film_width).camera.numpy()
+    check(img.shape == (512, 512, 3) and bool(np.isfinite(img).all()),
+          f"cornell {label}: image {img.shape}, finite {bool(np.isfinite(img).all())}")
+    same_image("sharded", f"cornell {label} vs single device", img, single)
+    mean = gate_mean(f"sharded cornell {label}", img, (0.05, 0.15))
+    say("sharded", f"cornell {label}: {wall:.3f} s of launch, {ranks[0]['rays_total']} rays "
+        f"(padded rows included), mean {mean:.5f}")
+    out[label] = {k: sum(r["launches"].get(f"brute_trace.{k}", 0) for r in ranks)
+                  for k in ("intersect", "occluded")}
+  return out
+
+
+def sharded_caustics_phase(dev):
+  """Bench config 5 by VCM on SHARDED_VCM_RANKS gloo ranks that share the
+  card: one uncapped 32x32 iteration held against the single-device one on
+  the card, then SHARDED_VCM_ITERATIONS capped iterations at 256x256, gated
+  as the caustics main path. Returns the ranks' K3/K4 launches."""
+  small = caustics.build_caustics_scene(SHARDED_VCM_SMALL).build(device="cpu")
+  big = caustics.build_caustics_scene(VCM_SIZE).build(device="cpu")
+  fs = film_mod.allocate(*SHARDED_VCM_SMALL, dev)
+  single = film_mod.result_image(vcm.render_iteration(*small, _UNCAPPED, fs, 0, device=dev))
+  single = single.cpu().numpy()
+  torch.cuda.empty_cache()
+  t_launch = time.time()
+  ranks = pmesh.launch(sharded_vcm_job, SHARDED_VCM_RANKS, "gloo",
+                       ["cuda:0"] * SHARDED_VCM_RANKS, SPAWN_TIMEOUT,
+                       args=(small, big, SHARDED_VCM_ITERATIONS))
+  wall = time.time() - t_launch
+  label = f"caustics VCM gloo x{SHARDED_VCM_RANKS} on one card"
+  rank_lines("sharded", label, ranks, t_launch)
+  for r in ranks:
+    for run in ("uncapped", "capped"):
+      check(set(r[run]["launches"]) == {"brute2_trace.intersect", "brute2_trace.occluded"},
+            f"{label} rank {r[run]['rank']} ({run}) launched {r[run]['launches']}, not K3 and K4")
+  film = ranks[0]["uncapped"]["film"]
+  same_image("sharded", f"{label} 32x32 uncapped vs single device",
+             film["camera"] + film["light"], single)
+  film = ranks[0]["capped"]["film"]
+  img = film["camera"] + film["light"]
+  check(img.shape == (VCM_SIZE[1], VCM_SIZE[0], 3) and bool(np.isfinite(img).all()),
+        f"{label}: image {img.shape}, finite {bool(np.isfinite(img).all())}")
+  lum = spectrum.RGB_TO_XYZ[1].astype(np.float64)
+  y_light = film["light"] @ lum
+  check(float(y_light.min()) >= -1e-5 * max(1.0, float(img.max())),
+        f"{label}: negative light-layer luminance {y_light.min()}")
+  mean = float(img.mean())
+  lo, hi = CAUSTICS_VCM_MEAN
+  check(lo <= mean <= hi, f"{label}: image mean {mean} outside [{lo}, {hi}]")
+  left, right = check_thirds(img, label)
+  say("sharded", f"{label} 256x256: " + ", ".join(
+      f"rank {r['capped']['rank']} {r['capped']['seconds'] / SHARDED_VCM_ITERATIONS:.3f} s an "
+      f"iteration (32x32 uncapped {r['uncapped']['seconds']:.3f} s)" for r in ranks))
+  say("sharded", f"{label} 256x256, {SHARDED_VCM_ITERATIONS} iterations: {wall:.3f} s of launch "
+      f"(both runs), mean {mean:.5f}, left third RGB {left}, right third RGB {right}")
+  return {k: sum(r["capped"]["launches"].get(f"brute2_trace.{k}", 0) for r in ranks)
+          for k in ("intersect", "occluded")}
+
+
+def devices_phase(scene_file):
+  """`cli render --devices 2` on the Cornell scene files in a subprocess:
+  one card is visible, so the CLI says so and runs a NCCL world of 1;
+  gated as the CLI phase's PT. Returns its K1/K2 launches."""
+  out_exr = Path(scene_file).parent.parent / "devices.exr"
+  t0 = time.perf_counter()
+  proc = subprocess.run([sys.executable, "-m", "etx_tracer_tpu_torch.cli", "render", scene_file,
+                         "-o", str(out_exr), "--devices", "2", "--spp", str(DEVICES_SPP)],
+                        cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                        timeout=SPAWN_TIMEOUT)
+  seconds = time.perf_counter() - t0
+  check(proc.returncode == 0, f"cli render --devices 2 exited {proc.returncode}:\n"
+        f"{proc.stderr[-3000:]}")
+  for line in proc.stderr.splitlines():
+    say("devices", f"  {line}")
+  check("only 1 device(s) visible; using 1" in proc.stderr and "1 nccl rank(s)" in proc.stderr,
+        "cli render --devices 2 did not say it runs one NCCL rank")
+  found = re.search(r"trace kernel launches: (\{.*\})", proc.stderr)
+  check(found is not None, "cli render --devices 2 printed no launch counts")
+  launched = json.loads(found.group(1))
+  check(set(launched) == {"brute_trace.intersect", "brute_trace.occluded"},
+        f"cli render --devices 2 launched {launched}, not K1 and K2")
+  b = json_scene.load_scene(scene_file)
+  mean = gate_cli_image("cli render --devices 2", out_exr, CLI_PT_MEAN, b.film_size)
+  say("devices", f"python -m etx_tracer_tpu_torch.cli render --devices 2 --spp {DEVICES_SPP} "
+      f"{b.film_size[0]}x{b.film_size[1]}: {seconds:.3f} s of subprocess, launches {launched}, "
+      f"image mean {mean:.5f}")
+  return {k: launched[f"brute_trace.{k}"] for k in ("intersect", "occluded")}
+
+
+def _free_port() -> int:
+  import socket
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    return s.getsockname()[1]
+
+
+def viewer_phase(work: Path):
+  """`cli view cornell --size 512x512` in a subprocess, driven over HTTP as
+  a browser does. Returns its K1/K2 launches."""
+  import urllib.request
+  port = _free_port()
+  base = f"http://127.0.0.1:{port}"
+  log = open(work / "viewer.log", "w+")
+  t0 = time.perf_counter()
+  proc = subprocess.Popen([sys.executable, "-m", "etx_tracer_tpu_torch.cli", "view", "cornell",
+                           "--size", f"{VIEWER_SIZE[0]}x{VIEWER_SIZE[1]}", "--port", str(port)],
+                          cwd=str(Path(__file__).resolve().parent), stdout=log,
+                          stderr=subprocess.STDOUT)
+  deadline = time.monotonic() + VIEWER_TIMEOUT
+
+  def get(route):
+    return urllib.request.urlopen(base + route, timeout=30).read()
+
+  def post(route, data):
+    req = urllib.request.Request(base + route, data=json.dumps(data).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=30).read()
+
+  def wait(what, cond):
+    while True:
+      check(proc.poll() is None, f"viewer exited with {proc.returncode} while waiting for {what}")
+      check(time.monotonic() < deadline, f"viewer: no {what} within {VIEWER_TIMEOUT} s")
+      try:
+        s = json.loads(get("/status"))
+      except OSError:  # not serving yet
+        time.sleep(0.2)
+        continue
+      check(s["error"] is None, f"viewer render thread died:\n{s['error']}")
+      if cond(s):
+        return s
+      time.sleep(0.05)
+
+  try:
+    s = wait("first frame", lambda s: s["frames"] >= 1)
+    first = time.perf_counter() - t0
+    s = wait(f"{VIEWER_ITERATIONS} iterations",
+             lambda s: s["iteration"] >= VIEWER_ITERATIONS and not s["preview"])
+    say("viewer", f"first frame {first:.3f} s after the start (interpreter, imports, scene, "
+        f"preview), {s['iteration']} iterations {time.perf_counter() - t0:.3f} s after; preview "
+        f"{s['preview_seconds']:.3f} s, iteration {s['iteration_seconds']:.3f} s (pt, "
+        f"{VIEWER_SIZE[0]}x{VIEWER_SIZE[1]})")
+    # the result layer's float values, written here and gated as the CLI's
+    exr = work / "viewer.exr"
+    image_io.save_exr(str(exr), np.load(io.BytesIO(get("/frame?layer=result&format=npy"))))
+    mean = gate_cli_image("viewer result", exr, VIEWER_MEAN, VIEWER_SIZE)
+    for layer in ("result", "normals", "noise", "denoised"):
+      png = image_io.decode_png(get(f"/frame?layer={layer}&exposure=1"))
+      check(png.shape == (VIEWER_SIZE[1], VIEWER_SIZE[0], 4), f"viewer {layer}: {png.shape}")
+    # a camera move: previews at 1/8 resolution, then accumulation restarts
+    before = s
+    post("/camera", {"orbit": [40, 0]})
+    s = wait("a preview after the orbit", lambda s: s["previews"] > before["previews"])
+    # a preview resets the iteration count: accumulation restarts
+    check(s["iteration"] == 0, f"viewer: iteration {s['iteration']} after the orbit's preview")
+    blocky = None
+    while blocky is None and time.monotonic() < deadline:
+      s1 = json.loads(get("/status"))
+      png = image_io.decode_png(get("/frame?layer=result&exposure=1"))
+      s2 = json.loads(get("/status"))
+      if s1["frames"] != s2["frames"]:
+        continue  # the frame changed while it was read
+      # a preview frame carries iteration 0 until the first iteration replaces it
+      check(s1["iteration"] == 0, "viewer: accumulation went on before a preview frame was read")
+      blocks = png.reshape(VIEWER_SIZE[1] // 8, 8, VIEWER_SIZE[0] // 8, 8, 4)
+      blocky = bool((blocks == blocks[:, :1, :, :1]).all())
+    check(blocky is True, f"viewer: the preview frame is not in 8x8 blocks ({blocky})")
+    s = wait("an iteration after the orbit", lambda s: s["iteration"] >= 1 and not s["preview"])
+    say("viewer", f"orbit: {s['previews'] - before['previews']} preview(s) at 1/8 resolution "
+        f"(8x8 blocks), accumulation restarted from iteration {before['iteration']} to "
+        f"{s['iteration']}; preview {s['preview_seconds']:.3f} s")
+    post("/options", {"integrator": "vcm"})
+    s = wait("a VCM iteration",
+             lambda s: s["integrator"] == "vcm" and s["iteration"] >= 1 and not s["preview"])
+    launched = {k: n for k, n in s["launches"].items() if n}
+    check(set(launched) == {"brute_trace.intersect", "brute_trace.occluded"},
+          f"viewer launched {launched}, not K1 and K2")
+    say("viewer", f"vcm: iteration {s['iteration_seconds']:.3f} s; result mean {mean:.5f}; "
+        f"launches in the viewer process {launched}")
+    return {k: launched[f"brute_trace.{k}"] for k in ("intersect", "occluded")}
+  finally:
+    proc.terminate()
+    try:
+      proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+      proc.kill()
+      proc.wait(timeout=30)
+    log.seek(0)
+    for line in log.read().splitlines()[-20:]:
+      say("viewer", f"  {line}")
+    log.close()
+
+
+def validate_phase(dev):
+  """The validating build on a VALIDATE_SIZE diffuse Cornell box: with the
+  red wall's reflectance set to NaN it must raise naming a `pt:` stage; the
+  clean scene passes; its extra seconds and host reads a bounce against
+  the production build."""
+  scene, config = cornell_scene(VALIDATE_SIZE, 1023, dev)
+  checked_config = dataclasses.replace(config, validate=True)
+  path_tracing.render(scene, config, iterations=VALIDATE_SPP, device=dev)  # warm-up
+  runs = {}
+  for label, cfg in (("production", config), ("validating", checked_config)):
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Counting() as counting:
+      img = film_mod.result_image(path_tracing.render(scene, cfg, iterations=VALIDATE_SPP,
+                                                      device=dev))
+      torch.cuda.synchronize()
+    runs[label] = (time.perf_counter() - t0, counting.bounces, counting.host_reads, read_counts(),
+                   img.cpu().numpy())
+  (ps, pb, pr, pc, pimg), (vs, vb, vr, vc, vimg) = runs["production"], runs["validating"]
+  check(pc == vc and pb == vb, f"validating build: launches {vc} and bounces {vb} against {pc} "
+        f"and {pb}")
+  check(bool(np.array_equal(pimg, vimg)) or bool(np.allclose(pimg, vimg, rtol=1e-6, atol=1e-7)),
+        "validating build changed the image")
+  rgb = scene.spec_rgb.clone()
+  red = (rgb == torch.tensor([1.0, 0.0, 0.0], device=dev)).all(dim=-1)
+  check(int(red.sum().item()) == 1, "validating build: no single red reflectance")
+  rgb[red] = float("nan")
+  try:
+    path_tracing.render(scene._replace(spec_rgb=rgb), checked_config, iterations=1, device=dev)
+    raised = None
+  except validate.ValidationError as e:
+    raised = str(e)
+  check(raised is not None and raised.startswith("non-finite in pt:"),
+        f"validating build on a NaN reflectance: {raised}")
+  say("validate", f"{VALIDATE_SIZE[0]}x{VALIDATE_SIZE[1]} {VALIDATE_SPP} spp: production "
+      f"{ps:.3f} s, validating {vs:.3f} s (+{vs - ps:.3f} s), {pb} bounces, host reads a bounce "
+      f"{pr / pb:.2f} -> {vr / vb:.2f}, launches equal {({k: n for k, n in pc.items() if n})}; NaN reflectance raised "
+      f"\"{raised}\"")
 
 
 def micro_phase(dev):
@@ -2194,7 +2566,12 @@ def main() -> int:
   showcase_512, counts_show = main_path_showcase(dev)
   captured_phase("shading showcase", ("intersect_brute2", "occluded_brute2"), *showcase_512, dev)
   del showcase_512
-  counts_cli = cli_phase(dev)
+  counts_cli, scene_file = cli_phase(dev)
+  counts_devices = devices_phase(scene_file)
+  counts_viewer = viewer_phase(Path(scene_file).parent.parent)
+  counts_sharded = sharded_cornell_phase(dev)
+  counts_sharded_vcm = sharded_caustics_phase(dev)
+  validate_phase(dev)
   # the staged sky and sun serve the 32x32 render too
   atmosphere_builder.film_size = (32, 32)
   end_to_end(atmosphere_builder)
@@ -2234,6 +2611,12 @@ def main() -> int:
       f"{ATMOSPHERE_ITERATIONS} spp); on its bounce {CAPTURE_BOUNCE}: {rows_atm}")
   say("kernels", "K1/K2 launches on the CLI paths (the Cornell scene files, 640x640): "
       + ", ".join(f"{run} {c['intersect']} / {c['occluded']}" for run, c in counts_cli.items()))
+  say("kernels", "K1/K2 launches on the sharding slice's paths (all ranks): "
+      + ", ".join(f"cornell {run} {c['intersect']} / {c['occluded']}"
+                  for run, c in counts_sharded.items())
+      + f", --devices 2 {counts_devices['intersect']} / {counts_devices['occluded']}, the viewer "
+      f"{counts_viewer['intersect']} / {counts_viewer['occluded']}; K3/K4 on the sharded "
+      f"caustics VCM {counts_sharded_vcm['intersect']} / {counts_sharded_vcm['occluded']}")
   say("kernels", f"K3/K4 launches on the shading showcase path "
       f"{counts_show['intersect_brute2']} / {counts_show['occluded_brute2']} "
       f"({SHOWCASE_ITERATIONS} warm + {SHOWCASE_REPS} x {SHOWCASE_ITERATIONS} spp)")

@@ -7,15 +7,20 @@ compare it with a reference image.
 Usage:
   python -m etx_tracer_tpu_torch.cli render scene.json -o out.exr [--spp N]
       [--integrator pt|bdpt|bdpt-fast|vcm|lt|debug] [--size WxH] [--spectral]
-      [--aov normals] [--adaptive] [--reference ref.exr] [--device cpu]
+      [--aov normals] [--adaptive] [--devices N] [--reference ref.exr] [--device cpu]
   python -m etx_tracer_tpu_torch.cli render recent     (most recent scene)
   python -m etx_tracer_tpu_torch.cli compare a.exr b.exr
   python -m etx_tracer_tpu_torch.cli cornell -o out.png (built-in scene)
+  python -m etx_tracer_tpu_torch.cli view [cornell|scene.json] [--size WxH] [--port P]
+      [--device cpu]                                     (web viewer)
 
 `--device` (default: the CUDA card, which must exist) is where the render
-runs; `--device cpu` runs the kernels' plain versions on the CPU. Sharding
-over several cards (`--devices N` with N > 1) and the interactive viewer
-(`view`) are not ported yet and raise NotImplementedError.
+runs; `--device cpu` runs the kernels' plain versions on the CPU.
+`--devices N` (path tracing) shards the film's rows over N ranks
+(`parallel/mesh.py`), one process a card over NCCL, or fewer when fewer
+cards are visible (it says so); rank 0 gathers the film. With `--device
+cpu` the N ranks run on the CPU over gloo. `view` serves the interactive
+viewer (`viewer/server.py`) on localhost.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import json
 import os
 import sys
 import time
+
+import torch
 
 from etx_tracer_tpu_torch import resolve_device
 
@@ -89,10 +96,6 @@ def _render_image(scene, config, args, device):
       fs = vcm.render(scene, config, options=options, iterations=spp, device=device)
     return film_mod.result_image(fs).cpu().numpy()
 
-  if args.devices and args.devices > 1:
-    raise NotImplementedError(
-        "--devices N > 1: sharding over several cards is not ported yet "
-        "(ROADMAP Queue 1 item 11)")
   if args.adaptive:
     fs = path_tracing.render_adaptive(scene, config, max_iterations=spp, device=device)
   else:
@@ -101,17 +104,44 @@ def _render_image(scene, config, args, device):
   return film_mod.result_image(fs).cpu().numpy()
 
 
-def _launches() -> dict:
-  """The trace kernels' launch counters, by kernel."""
-  from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace, bvh_trace, woop_trace
-  return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
-          for mod in (brute_trace, brute2_trace, bvh_trace, woop_trace)
-          for name, n in mod.launches.items()}
+def _render_sharded(scene, config, args, device):
+  """Path tracing sharded over `--devices` ranks (`parallel/mesh.py`): one
+  rank a visible card over NCCL (the kernels are built here first, so the
+  ranks do not race to build them), or N gloo ranks with `--device cpu`.
+  Returns (the camera image as numpy, the ranks' trace kernel launches,
+  summed)."""
+  from etx_tracer_tpu_torch.models import path_tracing
+  from etx_tracer_tpu_torch.ops import _build
+  from etx_tracer_tpu_torch.parallel import mesh
+  from etx_tracer_tpu_torch.scene import types as st
+
+  spp = args.spp or config.samples
+  if device.type == "cuda":
+    visible = torch.cuda.device_count()
+    n = min(args.devices, visible)
+    if n < args.devices:
+      _log(f"only {visible} device(s) visible; using {n}")
+    backend, devices = "nccl", [f"cuda:{k}" for k in range(n)]
+    _build.build_all()
+  else:
+    n, backend, devices = args.devices, "gloo", [str(device)] * args.devices
+  t0 = time.time()
+  ranks = mesh.launch(mesh.render_samples_job, n, backend, devices,
+                      args=(st.to_device(scene, "cpu"), config, 0, spp))
+  launched = {}
+  for r in ranks:
+    _log(f"rank {r['rank']} on {r['device']}: {r['seconds']:.1f}s, {r['rays']} rays, "
+         f"launches {json.dumps(r['launches'])}")
+    for k, v in r["launches"].items():
+      launched[k] = launched.get(k, 0) + v
+  _log(f"{n} {backend} rank(s) in {time.time() - t0:.1f}s (spawn included), "
+       f"{ranks[0]['rays_total']} rays traced")
+  sums = path_tracing.FilmSums(torch.from_numpy(ranks[0]["table"]))
+  return path_tracing.finalize_film(sums, spp, config.film_width).camera.numpy(), launched
 
 
 def _sync(device) -> None:
   if device.type == "cuda":
-    import torch
     torch.cuda.synchronize(device)
 
 
@@ -133,13 +163,18 @@ def cmd_render(args):
        f"{config.film_width}x{config.film_height}, {config.samples} spp, "
        f"classes={config.material_classes}")
 
-  before = _launches()
+  from etx_tracer_tpu_torch.ops import trace
+
+  before = trace.launch_counts()
   t0 = time.time()
-  img = _render_image(scene, config, args, device)
-  _sync(device)
+  if args.devices and args.devices > 1 and args.integrator == "pt":
+    img, launched = _render_sharded(scene, config, args, device)
+  else:
+    img = _render_image(scene, config, args, device)
+    _sync(device)
+    launched = {k: n - before[k] for k, n in trace.launch_counts().items() if n > before[k]}
   _log(f"{args.integrator} rendered in {time.time() - t0:.1f}s")
   if device.type == "cuda":
-    launched = {k: n - before[k] for k, n in _launches().items() if n > before[k]}
     _log(f"trace kernel launches: {json.dumps(launched)}")
 
   out = args.output or "out.exr"
@@ -181,8 +216,20 @@ def cmd_compare(args):
 
 
 def cmd_view(args):
-  raise NotImplementedError("view: the interactive viewer is not ported yet "
-                            "(ROADMAP Queue 1 item 12)")
+  from etx_tracer_tpu_torch.viewer import server as viewer_server
+
+  device = resolve_device(args.device)
+  if args.scene == "cornell":
+    from etx_tracer_tpu_torch.scene import cornell
+    b = cornell.build_cornell_box(film_size=_size(args.size or "512x512"), max_path_length=8)
+  else:
+    from etx_tracer_tpu_torch.scene import json_scene
+    from etx_tracer_tpu_torch.utils import prefs
+    b = json_scene.load_scene(args.scene)
+    if args.size:
+      b.film_size = _size(args.size)
+    prefs.add_recent(args.scene)
+  viewer_server.serve(b, port=args.port, device=device)
 
 
 def main(argv=None):
@@ -204,7 +251,8 @@ def main(argv=None):
                   help="adaptive per-pixel sampling (pt/vcm/bdpt; "
                        "ignored for lt, whose camera layer is empty)")
   pr.add_argument("--devices", type=int, default=None,
-                  help="shard over N devices (pt only; not ported yet for N > 1)")
+                  help="shard the film's rows over N ranks (pt only): one a visible card "
+                       "over NCCL, or N CPU ranks over gloo with --device cpu")
   pr.add_argument("--reference", default=None)
   pr.add_argument("--device", default=None, help=device_help)
   pr.set_defaults(fn=cmd_render)
@@ -226,6 +274,7 @@ def main(argv=None):
   pv.add_argument("scene", nargs="?", default="cornell")
   pv.add_argument("--port", type=int, default=8612)
   pv.add_argument("--size", default=None)
+  pv.add_argument("--device", default=None, help=device_help)
   pv.set_defaults(fn=cmd_view)
 
   args = p.parse_args(argv)

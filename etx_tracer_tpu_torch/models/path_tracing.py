@@ -44,6 +44,7 @@ bounce once per iteration.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -67,6 +68,7 @@ from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
 from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
 from etx_tracer_tpu_torch.scene.types import SubsurfaceClass
+from etx_tracer_tpu_torch.utils import validate
 
 # closest-hit traces a shadow segment may take through Boundary interfaces
 _MAX_SEGMENTS = 16
@@ -104,17 +106,26 @@ class PTState(NamedTuple):
 
 
 def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int,
-                      lens: camera_mod.Lens | None = None) -> PTState:
+                      lens: camera_mod.Lens | None = None, row_offset: int = 0,
+                      full_height: int | None = None) -> PTState:
   """Per-lane payload for sample ids; id s is pixel s % (W*H) at iteration
   s // (W*H). Lanes with s >= end_sample start dead. The RNG is seeded with
   tea(pixel, iteration) and draws, in order: the wavelength (unused in RGB
   mode), the pixel jitter, the lens sample (unused by a pinhole). `lens`
-  (`camera.lens_of`) is read from the scene when not given."""
+  (`camera.lens_of`) is read from the scene when not given.
+
+  row_offset/full_height: when the film is a band of rows of a larger film
+  (the sharded renderer, `parallel/mesh.py`), the pixel ids that seed the
+  RNG and place the camera ray are the full film's (local id + row_offset
+  * W) and the camera UV maps over `full_height` rows, so a band renders
+  exactly the lanes of the single-device render."""
   w, h = config.film_width, config.film_height
+  if full_height is None:
+    full_height = h
   npix = w * h
   r = sample_ids.shape[0]
   dev = sample_ids.device
-  pixel_index = sample_ids % npix
+  pixel_index = sample_ids % npix + row_offset * w
   iteration = sample_ids // npix
   state = rng.seed(pixel_index, iteration)
   state, wl_rnd = rng.next_float(state)
@@ -126,7 +137,7 @@ def make_lane_payload(scene, config, sample_ids: torch.Tensor, end_sample: int,
   py = pixel_index // w
   state, jit_rnd = rng.next_2d(state)
   jitter = camera_mod.pixel_jitter(config.pixel_filter, jit_rnd, iteration)
-  uv = camera_mod.film_uv(px, py, w, h, jitter)
+  uv = camera_mod.film_uv(px, py, w, full_height, jitter)
   state, lens_rnd = rng.next_2d(state)
   if lens is None:
     lens = camera_mod.lens_of(scene.camera)
@@ -375,6 +386,12 @@ def pt_step(scene, config, state: PTState, deferred: bool | None = None) -> PTSt
   direct_ok = surface & (e_pdf_dir > 0.0)
   accumulated = accumulated + torch.where(
       direct_ok[..., None], throughput * e_value * mis_w[..., None], 0.0)
+  if config.validate:
+    fmask = found[..., None]
+    validate.check_finite("pt:direct_emitter", accumulated=accumulated,
+                          emitter_value=torch.where(fmask, e_value, 0.0),
+                          hit_pos=torch.where(fmask, pos, 0.0),
+                          hit_nrm=torch.where(fmask, nrm, 0.0))
 
   # --- first-hit AOVs ---
   albedo_here = bsdf_dispatch.albedo(scene, sd, spectral)
@@ -389,6 +406,11 @@ def pt_step(scene, config, state: PTState, deferred: bool | None = None) -> PTSt
     bn = _blue_noise(config, state, 0)
     rnd_bsdf = torch.cat([torch.where(first_b, bn, rnd_bsdf[:, 0:2]), rnd_bsdf[:, 2:]], dim=-1)
   bs = bsdf_dispatch.sample(scene, sd, rnd_bsdf, spectral, classes, config.diffuse_variations)
+  if config.validate:
+    fmask = found[..., None]
+    validate.check_finite("pt:bsdf_sample", weight=torch.where(fmask, bs.weight, 0.0),
+                          pdf=torch.where(found, bs.pdf, 0.0),
+                          w_o=torch.where(fmask, bs.w_o, 0.0))
 
   # --- subsurface: walk to an exit, continue and shade from there ---
   if config.has_subsurface:
@@ -517,6 +539,13 @@ def pt_step(scene, config, state: PTState, deferred: bool | None = None) -> PTSt
     cont = cont | pass_through
   alive = continue_ok & cont & sample_ok & (new_len <= config.max_path_length)
   rays_traced = state.rays_traced + state.alive.sum() + nee_ok.sum()
+  if config.validate:
+    amask = alive[..., None]
+    validate.check_finite("pt:nee", accumulated=accumulated)
+    validate.check_finite("pt:continuation",
+                          throughput=torch.where(amask, new_throughput, 0.0),
+                          ray_o=torch.where(amask, new_o, 0.0),
+                          ray_d=torch.where(amask, new_d, 0.0))
 
   return PTState(
       ray_o=new_o, ray_d=new_d,
@@ -632,8 +661,12 @@ def _nee_row(rgb, valid, meta):
 
 
 def render_samples_static(scene, config, first_iteration: int, num_iterations: int,
-                          pool_size: int = POOL_SIZE, device=None):
+                          pool_size: int = POOL_SIZE, device=None, row_offset: int = 0,
+                          full_height: int | None = None):
   """Render num_iterations spp with a fixed pool; returns (FilmSums, rays).
+
+  row_offset/full_height: the film is a band of rows of a larger film (see
+  `make_lane_payload`); the returned table stays the band's own.
 
   Lane q owns pixels slot*p_base + q % p_base; films smaller than the pool
   widen it with k lanes per pixel, each owning n//k of the iterations. The
@@ -696,7 +729,8 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
       counter = counter + died.to(counter.dtype)
       fresh = make_lane_payload(scene, config,
-                                ids_for(torch.clamp(counter, max=per_lane - 1)), end, lens)
+                                ids_for(torch.clamp(counter, max=per_lane - 1)), end, lens,
+                                row_offset, full_height)
       regen = died & (counter < per_lane)
       merged = _pick(regen, fresh, new_state)
       # the pending shadow ray survives regeneration: it belongs to the
@@ -735,7 +769,8 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
 
   lane0 = torch.arange(p, dtype=torch.int64, device=device)
   init_it = first_iteration + (lane0 // p_base) * n_lane
-  state = make_lane_payload(scene, config, init_it * npix + (lane0 % p_base), end, lens)
+  state = make_lane_payload(scene, config, init_it * npix + (lane0 % p_base), end, lens,
+                            row_offset, full_height)
   counter = torch.zeros(p, dtype=torch.int64, device=device)
   lanes = lane0
   pend_meta = torch.zeros((p, 2), device=device)
@@ -772,6 +807,23 @@ def render_samples_static(scene, config, first_iteration: int, num_iterations: i
     film_rows = torch.zeros((nw, s_slots, _SUMS_WIDTH), device=device)
 
   return FilmSums(table), state.rays_traced
+
+
+def render_preview(scene, config, pixel_size: int = 8, iterations: int = 1,
+                   pool_size: int = POOL_SIZE, device=None) -> torch.Tensor:
+  """Progressive preview: the film rendered at 1/pixel_size of its width
+  and height, each pixel repeated pixel_size times along both axes (the
+  camera-move preview of the interactive viewer). Returns the (H,W,3)
+  camera image."""
+  w, h = config.film_width, config.film_height
+  pw = max(1, w // pixel_size)
+  ph = max(1, h // pixel_size)
+  small = dataclasses.replace(config, film_width=pw, film_height=ph)
+  sums, _ = render_samples_static(scene, small, 0, iterations,
+                                  pool_size=min(pool_size, pw * ph), device=device)
+  img = finalize_film(sums, iterations, pw).camera.reshape(ph, pw, 3)
+  img = img.repeat_interleave(pixel_size, dim=0).repeat_interleave(pixel_size, dim=1)
+  return img[:h, :w]
 
 
 def finalize_film(sums: FilmSums, iterations: int, width: int) -> film_mod.FilmState:

@@ -32,10 +32,12 @@ scattering (camera-side connections, NEE and merging at the exit), lit by
 area and distant emitters (light paths start on the bounding sphere from
 an environment or a directional emitter; camera paths that miss gather the
 environment), through a pinhole, a thin lens or an equirectangular
-camera. The JAX package's sharding parameters (`path_offset`, `n_valid`,
-`splat_shape`, `pixel_offset`, `full_height`) are left out (ROADMAP Queue
-1 item 11). A radiance clamp does not apply to VCM in the JAX package
-either.
+camera. The JAX package's sharding parameters are here: `light_pass`
+traces a slice of the light paths (`path_offset`, `n_valid`) into a splat
+image of the whole film (`splat_shape`), and `camera_pass` renders a band
+of rows (`pixel_offset`, `full_height`), for
+`parallel/mesh.vcm_render_iteration_sharded`. A radiance clamp does not
+apply to VCM in the JAX package either.
 
 PyTorch runs eagerly: every JAX `while_loop` is a Python loop that reads
 its condition on the host once an iteration, over the JAX loop's widths and
@@ -72,6 +74,7 @@ from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import types as st
 from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
 from etx_tracer_tpu_torch.scene.types import SubsurfaceClass
+from etx_tracer_tpu_torch.utils import validate
 
 _MASK32 = 0xFFFFFFFF
 
@@ -330,13 +333,19 @@ def _advance(state: VCMState, v: _Vertex, bs, geo_n, pos, nrm, new_thr, new_dept
 # ---------------------------------------------------------------------------
 
 
-def _generate_light_state(scene, config, n_paths: int, iteration: int, vc_weight: float):
+def _generate_light_state(scene, config, n_paths: int, iteration: int, vc_weight: float,
+                          path_offset: int = 0, n_valid: int | None = None):
   """The light paths' first rays. Path i is seeded with tea(i, iteration)
-  and draws its wavelength, the emitter, the point and the direction."""
+  and draws its wavelength, the emitter, the point and the direction.
+
+  path_offset: the lanes trace the light paths path_offset .. path_offset +
+  n_paths - 1 (a slice of a sharded light pass, with the single-device
+  pass's seeds); paths with an id >= n_valid start dead (the padding of
+  uneven shards)."""
   r = n_paths
   dev = scene.tri_v0.device
   c = spx.channels(config.spectral)
-  idx = torch.arange(r, dtype=torch.int64, device=dev)
+  idx = torch.arange(r, dtype=torch.int64, device=dev) + path_offset
   state = rng.seed(idx, torch.full((r,), iteration, dtype=torch.int64, device=dev))
   state, wl_rnd = rng.next_float(state)
   wl = spmod.sample_wavelength(wl_rnd) if config.spectral else torch.zeros(r, device=dev)
@@ -349,6 +358,8 @@ def _generate_light_state(scene, config, n_paths: int, iteration: int, vc_weight
   denom = torch.clamp(es.pdf_dir * es.pdf_area * es.pdf_sample, min=1e-20)
   throughput = es.value * (cos_t / denom)[..., None]
   valid = (es.pdf_dir > 0.0) & (cos_t > 0.0)
+  if n_valid is not None:
+    valid = valid & (idx < n_valid)
   side = torch.where(em.dot(es.geo_n, es.direction) >= 0, 1.0, -1.0)[..., None]
   origin = torch.where((es.triangle_index >= 0)[..., None],
                        em.offset_ray(es.origin, es.geo_n * side), es.origin)
@@ -370,11 +381,12 @@ def _generate_light_state(scene, config, n_paths: int, iteration: int, vc_weight
 
 def _light_step(scene, config, options: VCMOptions, state: VCMState, slot: int,
                 verts: Optional[LightVertices], splat: torch.Tensor, n_paths: int,
-                vc_weight: float, vm_weight: float) -> VCMState:
+                vc_weight: float, vm_weight: float, splat_rows: int, true_h: int) -> VCMState:
   """One light-path bounce over the wavefront: the vertex store at `slot`
   (into `verts`, in place, unless it is None), the camera connection
-  (scatter-added into the flat (H*W,3) `splat`, in place), the BSDF (or
-  phase) continuation and Russian roulette."""
+  (scatter-added into the flat (splat_rows*W,3) `splat`, in place, at the
+  pixel its film position falls in on a film of `true_h` rows), the BSDF
+  (or phase) continuation and Russian roulette."""
   spectral = config.spectral
   classes = config.material_classes
   r = state.alive.shape[0]
@@ -487,7 +499,7 @@ def _light_step(scene, config, options: VCMOptions, state: VCMState, slot: int,
   rgb = rgb / float(n_paths) * (film_w * film_h)
   suv = cam.uv * 0.5 + 0.5
   fx = suv[..., 0] * film_w
-  fy = suv[..., 1] * film_h
+  fy = suv[..., 1] * true_h
   if config.pixel_filter == "blackman-harris":
     # splats are jittered by the camera rays' reconstruction filter
     rng_state, f_rnd = rng.next_2d(rng_state)
@@ -496,9 +508,9 @@ def _light_step(scene, config, options: VCMOptions, state: VCMState, slot: int,
     fy = fy + fj[..., 1]
   sx = torch.floor(fx).to(torch.int64)
   sy = torch.floor(fy).to(torch.int64)
-  s_ok = can_connect & (sx >= 0) & (sx < film_w) & (sy >= 0) & (sy < film_h)
+  s_ok = can_connect & (sx >= 0) & (sx < film_w) & (sy >= 0) & (sy < splat_rows)
   sx = torch.clamp(sx, 0, film_w - 1)
-  sy = torch.clamp(sy, 0, film_h - 1)
+  sy = torch.clamp(sy, 0, splat_rows - 1)
   splat.index_add_(0, sy * film_w + sx, torch.where(s_ok[..., None], rgb, 0.0))
 
   # --- BSDF sample and the recurrences of the next ray ---
@@ -549,9 +561,16 @@ def _phase_continue(config, state: VCMState, mv, msample, medium_event, rng_stat
 
 
 def light_pass(scene, config, options: VCMOptions, iteration: int, n_paths: int,
-               vc_weight: float, vm_weight: float):
-  """Trace `n_paths` light paths; returns (vertices, splat image (H,W,3),
+               vc_weight: float, vm_weight: float, path_offset: int = 0,
+               n_valid: int | None = None, splat_shape: tuple | None = None):
+  """Trace `n_paths` light paths; returns (vertices, splat image (rows,W,3),
   final state with the full-width wavelengths).
+
+  path_offset, n_valid: the slice of a sharded light pass
+  (`_generate_light_state`). splat_shape: (image_rows, true_film_height),
+  the rows of the splat image (the padded full film of a sharded pass) and
+  the film height that maps a film position to a row; default
+  (config.film_height,) * 2.
 
   The walk runs to `config.max_path_length` while any lane lives. The
   first `max_stored_vertices` bounces (when connections or merging need
@@ -561,16 +580,23 @@ def light_pass(scene, config, options: VCMOptions, iteration: int, n_paths: int,
   c = spx.channels(config.spectral)
   dev = scene.tri_v0.device
   v_slots = options.max_stored_vertices
-  state = _generate_light_state(scene, config, n_paths, iteration, vc_weight)
+  state = _generate_light_state(scene, config, n_paths, iteration, vc_weight, path_offset,
+                                n_valid)
   verts = _alloc_vertices(n_paths, v_slots, c, dev)
-  film_w, film_h = config.film_width, config.film_height
-  splat = torch.zeros((film_h * film_w, 3), device=dev)
+  film_w = config.film_width
+  splat_rows, true_h = splat_shape or (config.film_height, config.film_height)
+  splat = torch.zeros((splat_rows * film_w, 3), device=dev)
   max_depth = config.max_path_length
   wl0 = state.wl
 
   def step(state, slot, with_verts):
-    return _light_step(scene, config, options, state, slot, verts if with_verts else None,
-                       splat, n_paths, vc_weight, vm_weight)
+    state = _light_step(scene, config, options, state, slot, verts if with_verts else None,
+                        splat, n_paths, vc_weight, vm_weight, splat_rows, true_h)
+    if config.validate:
+      validate.check_finite("vcm:light_pass",
+                            throughput=torch.where(state.alive[..., None], state.throughput, 0.0),
+                            d_vcm=torch.where(state.alive, state.d_vcm, 0.0), splat_img=splat)
+    return state
 
   needs_verts = options.connect_vertices or options.enable_merging
   phase_a = min(v_slots, max_depth) if needs_verts else 0
@@ -589,7 +615,7 @@ def light_pass(scene, config, options: VCMOptions, iteration: int, n_paths: int,
     if last:
       break
     state = _take(state, _alive_first(state.alive)[:widths[li + 1]])
-  return verts, splat.reshape(film_h, film_w, 3), state._replace(wl=wl0)
+  return verts, splat.reshape(splat_rows, film_w, 3), state._replace(wl=wl0)
 
 
 # ---------------------------------------------------------------------------
@@ -1160,12 +1186,16 @@ def _camera_step(scene, config, options: VCMOptions, state: VCMState, verts: Lig
 
 def camera_pass(scene, config, options: VCMOptions, iteration: int, verts: LightVertices,
                 grid: Optional[MergeGrid], radius: float, vc_weight: float, vm_weight: float,
-                vm_normalization: float, active_mask=None, return_rays: bool = False):
+                vm_normalization: float, pixel_offset: int = 0, full_height: int | None = None,
+                active_mask=None, return_rays: bool = False):
   """Camera paths, one lane per pixel (pixel i connects to light path i).
   Lane i is seeded with tea(i + 0x9E3779B9, iteration) and takes light
   path i's wavelength. Returns the (W*H,3) RGB of the iteration (and, with
   `return_rays`, the rays traced). `active_mask` ((W*H,) bool): lanes
-  outside it start dead and return 0.
+  outside it start dead and return 0. pixel_offset/full_height: the film is
+  a band of rows of a larger film; lane i renders pixel i + pixel_offset of
+  a film of `full_height` rows, with that pixel's seeds (its light path is
+  lane i of `verts`, the band's own slice of the light pass).
 
   The walk runs to `config.max_path_length` while any lane lives, as a
   cascade of widths n, n/4, ... (at least `_CAMERA_CASCADE_MIN` lanes,
@@ -1178,16 +1208,19 @@ def camera_pass(scene, config, options: VCMOptions, iteration: int, verts: Light
   c = spx.channels(spectral)
   dev = scene.tri_v0.device
 
+  if full_height is None:
+    full_height = h
   idx = torch.arange(r, dtype=torch.int64, device=dev)
+  gidx = idx + pixel_offset
   it_t = torch.full((r,), iteration, dtype=torch.int64, device=dev)
-  rng_state = rng.seed(idx + 0x9E3779B9, it_t)
+  rng_state = rng.seed(gidx + 0x9E3779B9, it_t)
   rng_state, _ = rng.next_float(rng_state)
   # the light path's wavelength, from its own seed
-  _, l_wl_rnd = rng.next_float(rng.seed(idx, it_t))
+  _, l_wl_rnd = rng.next_float(rng.seed(gidx, it_t))
   wl = spmod.sample_wavelength(l_wl_rnd) if spectral else torch.zeros(r, device=dev)
   rng_state, jit_rnd = rng.next_2d(rng_state)
   jitter = camera_mod.pixel_jitter(config.pixel_filter, jit_rnd, it_t)
-  uv = camera_mod.film_uv(idx % w, idx // w, w, h, jitter)
+  uv = camera_mod.film_uv(gidx % w, gidx // w, w, full_height, jitter)
   rng_state, lens_rnd = rng.next_2d(rng_state)
   rays = camera_mod.generate_ray(scene.camera, uv, lens_rnd, camera_mod.lens_of(scene.camera),
                                  scene.images, config.equirectangular)
@@ -1220,6 +1253,10 @@ def camera_pass(scene, config, options: VCMOptions, iteration: int, verts: Light
                                    vc_weight, vm_weight)
       if merged is not None:
         merged_total = merged_total + merged
+      if config.validate:
+        validate.check_finite(
+            "vcm:camera_pass", gathered=state.gathered, merged=merged_total,
+            throughput=torch.where(state.alive[..., None], state.throughput, 0.0))
       step += 1
     out_gathered.index_add_(0, orig, state.gathered)
     out_merged.index_add_(0, orig, merged_total)

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace, bvh_trace
+from etx_tracer_tpu_torch.ops import brute2_trace, brute_trace, bvh_trace, woop_trace
 from etx_tracer_tpu_torch.ops.brute_trace import Hit  # noqa: F401  (re-export)
 
 # the plain closest-hit loop, the semantics reference (JAX: intersect_scan)
@@ -91,6 +91,14 @@ def _morton(bvh, p):
   q = torch.clamp((p - root_min) / root_ext, 0.0, 1.0)
   cell = (q * 511.0).to(torch.int64)
   return _spread3(cell[:, 0]) | (_spread3(cell[:, 1]) << 1) | (_spread3(cell[:, 2]) << 2)
+
+
+def launch_counts() -> dict:
+  """The trace kernels' launch counters in this process, by
+  "module.kernel" ("brute_trace.intersect", ...)."""
+  return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": n
+          for mod in (brute_trace, brute2_trace, bvh_trace, woop_trace)
+          for name, n in mod.launches.items()}
 
 
 def _ray_sort_keys(bvh, o, d):

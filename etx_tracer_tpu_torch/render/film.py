@@ -112,3 +112,36 @@ def dilate_mask(active: torch.Tensor, k: int = 5) -> torch.Tensor:
     for dx in range(k):
       out = out | act[dy:dy + h, dx:dx + w]
   return out
+
+
+def _hsv_to_rgb(h, s, v):
+  i = torch.floor(h * 6.0)
+  f = h * 6.0 - i
+  p = v * (1.0 - s)
+  q = v * (1.0 - f * s)
+  t = v * (1.0 - (1.0 - f) * s)
+  i = i.to(torch.int32) % 6
+
+  def pick(*by_sector):
+    out = by_sector[5]
+    for k in range(4, -1, -1):
+      out = torch.where(i == k, by_sector[k], out)
+    return out
+
+  return torch.stack([pick(v, q, p, p, t, v), pick(t, v, v, q, p, p), pick(p, p, t, v, v, q)],
+                     dim=-1)
+
+
+def sample_heatmap(counts, min_samples: int = 4) -> torch.Tensor:
+  """Debug layer: a heat map of per-pixel sample counts ((H,W)), blue (hue
+  2/3) at `min_samples`, red (hue 0) at the largest count; all blue when no
+  count exceeds `min_samples`. Returns (H,W,3)."""
+  counts = torch.as_tensor(counts, dtype=torch.float32)
+  max_c = counts.max()
+  t = torch.where(max_c > min_samples,
+                  torch.clamp((counts - min_samples) / torch.clamp(max_c - min_samples, min=1e-6),
+                              0.0, 1.0),
+                  0.0)
+  hue = (2.0 / 3.0) * (1.0 - t)
+  one = torch.ones_like(hue)
+  return _hsv_to_rgb(hue, one, one)

@@ -203,6 +203,9 @@ class SceneConfig:
   # the stochastic alpha test runs (some material has an opacity below 1 or
   # a scattering image with an alpha below 1)
   has_alpha: bool = False
+  # the validating build: finite checks after each integrator stage
+  # (`utils/validate.py`), one host read each
+  validate: bool = False
 
 
 def _to(x, device):

@@ -22,19 +22,10 @@ from etx_tracer_tpu_torch import resolve_device
 from etx_tracer_tpu_torch.ops import bvh_build
 from etx_tracer_tpu_torch.scene import types as st
 
-# JAX SceneConfig fields and the values the port supports: the finite-guard
-# validation build is ROADMAP Queue 1 item 12
-_REQUIRED = {"validate": False}
-
-
 def check_supported(config_fields) -> None:
-  """Raise NotImplementedError if a configuration needs a part the port
-  does not have yet."""
-  for name, want in _REQUIRED.items():
-    if name in config_fields and config_fields[name] != want:
-      raise NotImplementedError(
-          f"SceneConfig.{name}={config_fields[name]!r}: the port renders only "
-          f"{name}={want!r} (the validation build is ROADMAP Queue 1 item 12)")
+  """Raise ValueError if a configuration names a pixel filter the port does
+  not know. Every other JAX SceneConfig field and value is ported (the
+  validating build since the utilities' slice)."""
   if config_fields.get("pixel_filter", "blackman-harris") not in ("blackman-harris", "box", "center"):
     raise ValueError(f"unknown pixel_filter {config_fields['pixel_filter']!r}")
 

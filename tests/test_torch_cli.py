@@ -103,14 +103,20 @@ def test_cli_cornell_png_and_lt_adaptive(tmp_path, capsys):
   assert pio.load_exr(exr).mean() > 0.0
 
 
-def test_cli_later_slices_and_no_card_raise(scene_file, tmp_path):
+def test_cli_later_slices_and_no_card_raise(scene_file, tmp_path, capsys):
+  """`--devices 2` with `--device cpu` renders on two gloo ranks (the
+  single-device render's image, but for the float order of sums); without a
+  card `render` and `view` raise."""
   out = str(tmp_path / "x.exr")
-  with pytest.raises(NotImplementedError, match="item 11"):
-    pcli.main(["render", scene_file, "-o", out, *ARGS, "--devices", "2", "--device", "cpu"])
-  with pytest.raises(NotImplementedError, match="viewer"):
-    pcli.main(["view", scene_file])
+  pcli.main(["render", scene_file, "-o", out, *ARGS, "--devices", "2", "--device", "cpu"])
+  assert "2 gloo rank(s)" in capsys.readouterr().err
+  single = str(tmp_path / "single.exr")
+  pcli.main(["render", scene_file, "-o", single, *ARGS, "--device", "cpu"])
+  np.testing.assert_allclose(pio.load_exr(out), pio.load_exr(single), rtol=1e-5, atol=1e-6)
   with pytest.raises(SystemExit):
     pcli.main(["render", scene_file, "--integrator", "nonsense"])
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="device='cpu'"):
       pcli.main(["render", scene_file, "-o", out, *ARGS])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      pcli.main(["view", scene_file])

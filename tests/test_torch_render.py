@@ -178,24 +178,18 @@ def assert_bvh_holds_tree(bvh, arrays):
   assert not rows[:, 10:].any()
 
 
-@pytest.mark.parametrize("field,value", [("validate", True)])
-def test_scene_bridge_rejects_later_slices(jax_scene, field, value):
-  fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
-  with pytest.raises(NotImplementedError):
-    scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
-
-
 @pytest.mark.parametrize("field,value", [("spectral", True), ("material_classes", (0, 3, 4, 5)),
                                          ("has_media", True), ("has_radiance_clamp", True),
                                          ("material_classes", (0, 7)), ("blue_noise", True),
                                          ("material_classes", (0, 6)),
                                          ("material_classes", tuple(range(11))),
                                          ("diffuse_variations", (0, 1, 2)),
-                                         ("has_alpha", True)])
+                                         ("has_alpha", True), ("validate", True)])
 def test_scene_bridge_accepts_the_materials_options(jax_scene, field, value):
   """The options of the ported slices: spectral mode and the materials
   classes, media, the radiance clamp and the Boundary class; blue noise,
-  every class, the diffuse variations and the alpha test."""
+  every class, the diffuse variations and the alpha test; the validating
+  build."""
   fields = dict(dataclasses.asdict(jax_scene[1]), **{field: value})
   _, config = scene_bridge.from_numpy(_jax_arrays(jax_scene[0]), fields, device="cpu")
   assert getattr(config, field) == value
@@ -517,6 +511,13 @@ for extra in ([], ["--adaptive", "--spp", "3"], ["--integrator", "debug", "--aov
   assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0
 fs = path_tracing.render_adaptive(scene, config, max_iterations=2, device="cpu")
 assert denoiser.denoise_film(fs).shape == (8, 8, 3) and debug.DebugMode.Count == 18
+from etx_tracer_tpu_torch.parallel import mesh
+from etx_tracer_tpu_torch.utils import checkpoint, options, profiler, validate
+from etx_tracer_tpu_torch.viewer import server
+assert mesh.dryrun(2)[0] == (7, 16, 3)
+scene, config = cornell.build_cornell_box(film_size=(8, 8), max_path_length=3).build(device="cpu")
+preview = path_tracing.render_preview(scene, config, pixel_size=4, device="cpu")
+assert preview.shape == (8, 8, 3) and bool(torch.isfinite(preview).all())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")
