@@ -153,7 +153,7 @@ Phases, one line each with its elapsed seconds:
      shaped by an image and bench config 3 (its staged sky, spectral) by
      path tracing (4 spp each), all through K1/K2;
      and the shading slice's: the all-classes showcase by path tracing with
-     blue noise (2 spp) and by VCM (without the per-cell cap, at a merge
+     blue noise (1 spp) and by VCM (without the per-cell cap, at a merge
      radius that keeps every cell within the glossy merge's 32 photons,
      path length 4, 1 iteration), both through K3/K4, and the specular-box
      Cornell (a glass
@@ -165,8 +165,8 @@ Phases, one line each with its elapsed seconds:
      roughness and normal-map images, Mirror, the two rough-diffuse
      variations, Void and an alpha-cut Diffuse; 2,916 triangles) at
      512x512, max path length 16, a 2^18-lane pool, blue noise, by
-     `_pt_mrays`'s protocol shortened to 2 warm iterations and 1 timed
-     repetition of 2: staging, warm-up and timed seconds, rays, Mrays/s
+     `_pt_mrays`'s protocol shortened to 1 warm iteration and 1 timed
+     repetition of 1: staging, warm-up and timed seconds, rays, Mrays/s
      and K3/K4 launches (every trace through K3/K4); gated (finite, no
      negative luminance, mean luminance within +-10% of the port's 64x64
      CPU render); then K3 and K4 on the closest-hit and shadow rays of its
@@ -175,10 +175,10 @@ Phases, one line each with its elapsed seconds:
   22c. the CLI (run before phase 22): the Cornell scene files that
      `scene/assets.py` writes (the Cornell box with the silver tall box, 36
      triangles, 640x640, 32 spp, path length 1023): `python3 -m
-     etx_tracer_tpu_torch.cli render` in a subprocess (path tracing through
-     K1/K2; its launch counts from its log), then `cli.main` with
-     `--adaptive --spp 64` (32 warm spp by the scatter pool, then four
-     batches of 8 over the active-pixel map) and with the normals and
+     etx_tracer_tpu_torch.cli render --spp 16` in a subprocess (path
+     tracing through K1/K2; its launch counts from its log), then
+     `cli.main` with `--adaptive --spp 48` (32 warm spp by the scatter
+     pool, then two batches of 8 over the active-pixel map) and with the normals and
      albedo AOVs (one K1 launch each), the launch counts set to 0 before
      each and read after; each EXR read back with `utils/image_io` and
      gated (finite, >= 0, red left third, green right third, mean within
@@ -203,7 +203,7 @@ Phases, one line each with its elapsed seconds:
      tolerances and gated, with each rank's seconds, rays and launches and
      the seconds to spawn and join the ranks; bench config 5 by VCM on 2
      gloo ranks sharing the card (one uncapped 32x32 iteration against the
-     single-device one, then 3 capped iterations at 256x256 gated as phase
+     single-device one, then 2 capped iterations at 256x256 gated as phase
      19); the validating build on a 64x64 Cornell (launches and bounces
      equal to the production build's, its extra seconds and host reads a
      bounce; a NaN reflectance raises naming a `pt:` stage);
@@ -217,6 +217,35 @@ Phases, one line each with its elapsed seconds:
      K1 give equal t, that sorted rays get their unsorted hits, and prints
      K9a's agreement with K3 (the share of equal `tri`, the largest relative
      |dt|). K9a/K9b's launches in the `kernels` line are `trace_brute`'s.
+     Then its other four groups, each checked to launch what it should:
+     `sort` and `mxu` (no kernel of the port), `dispatch` (the materials
+     scene's first hits at 256x256, one K3) and `step` (the phases of a
+     bounce of bench config 2 at 512x512, K3/K4);
+  24. the walks (`lobes.MS_BACKEND = "walk"`): the shading showcase at
+     512x512 under the Heitz walks (its Principled material walks the
+     conductor, dielectric and plastic lobes, its Plastic the plastic one),
+     1 warm and 1 timed spp through K3/K4, gated (finite, no negative
+     luminance, mean luminance within +-10% of the port's walked 64x64 CPU
+     render), its first bounce at 128x128 profiled (kernels and host reads,
+     beside the LUT showcase's first bounce), then the walked showcase (1
+     spp) and the walked materials scene (4 spp, its rough gold conductor
+     walks) at 32x32 card against CPU;
+  25. NanoVDB: bench config 4's 24^3 cloud written as a BLOSC `.nvdb` by
+     the JAX-free writer `tests/nvdb_writer.py` and read back equal; the
+     Cornell scene files with that grid as a medium (the camera and every
+     material in it) rendered by `python3 -m etx_tracer_tpu_torch.cli
+     render` in a subprocess at 384x384, 8 spp, path length 10, through K1,
+     and with the grid as a `.vol` by `cli.main`: equal images;
+  26. the native library: g++ and zlib.h reported, the library built
+     (the phase fails if it does not); bigscene's tree built natively and
+     by numpy, K5-K8 held bit-equal to their plain walks on the native tree
+     and timed on both; the CLI's Cornell OBJ files parsed natively,
+     freezing the Python parse's tables; a PIZ EXR round trip (FLOAT and
+     HALF). Every staged main-path scene says which builder built its BVH
+     (the native one wherever the library builds);
+  27. `benchmarks/denoise_eval` with its ground truth cut to 1,024 spp:
+     MSE and SSIM of the a-trous denoiser at 4 and 32 spp, gated finite and
+     reducing the interior MSE.
 
 Any failed check raises, so the script exits non-zero. After every phase has
 passed it prints one JSON line with each kernel's numbers and, as its last
@@ -241,16 +270,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from etx_tracer_tpu_torch import cli
+from etx_tracer_tpu_torch import cli, native
 from etx_tracer_tpu_torch.core import spectrum
 from etx_tracer_tpu_torch.models import path_tracing, vcm
-from etx_tracer_tpu_torch.benchmarks import micro
+from etx_tracer_tpu_torch.benchmarks import denoise_eval, micro
 from etx_tracer_tpu_torch.ops import _build, brute2_trace, brute_trace, bvh_build, bvh_trace
 from etx_tracer_tpu_torch.ops import woop_trace
 from etx_tracer_tpu_torch.parallel import mesh as pmesh
 from etx_tracer_tpu_torch.render import film as film_mod
+from etx_tracer_tpu_torch.render.bsdf import lobes
 from etx_tracer_tpu_torch.scene import assets, atmosphere, bigscene, caustics, cornell
-from etx_tracer_tpu_torch.scene import json_scene, materials
+from etx_tracer_tpu_torch.scene import json_scene, materials, nvdb
 from etx_tracer_tpu_torch.scene import volumetric
 from etx_tracer_tpu_torch.scene import packed
 from etx_tracer_tpu_torch.scene import builder as scene_builder
@@ -419,7 +449,7 @@ MEDIA_E2E = (
 # `bench.py:_pt_mrays`'s protocol shortened: SHOWCASE_ITERATIONS warm
 # iterations, then SHOWCASE_REPS timed repetitions of as many
 SHOWCASE_SIZE = (512, 512)
-SHOWCASE_ITERATIONS = 2
+SHOWCASE_ITERATIONS = 1
 SHOWCASE_REPS = 1
 SHOWCASE_CLASSES = (0, 1, 2, 3, 6, 8, 9, 10)
 SHOWCASE_TRIANGLES = 36 + 9 * 320
@@ -437,14 +467,15 @@ SHOWCASE_MEAN = (0.06340, 0.07749)
 SHOWCASE_VCM = vcm.VCMOptions(max_photons_per_cell=1 << 20, initial_radius=0.02)
 # the CLI phase: the Cornell scene files (`scene/assets.py`: the Cornell box
 # with the silver tall box, 36 triangles) at their own 640x640, 32 spp and
-# path length 1023, through `python -m etx_tracer_tpu_torch.cli render`;
-# then `--adaptive --spp 64` (32 warm spp by the scatter pool, then batches
-# of 8 over the active-pixel map) and two debug AOVs through `cli.main`.
+# path length 1023, through `python -m etx_tracer_tpu_torch.cli render`
+# at CLI_PT_SPP spp; then `--adaptive --spp CLI_ADAPTIVE_SPP` (32 warm spp
+# by the scatter pool, then batches of 8 over the active-pixel map) and two
+# debug AOVs through `cli.main`.
 # Each image's mean must lie within +-10% of the port's CPU render of the
 # same command at 64x64 (`python -m tests.cli_reference_means`, which
 # prints the JAX package's beside it): pt 0.0736629, adaptive 0.0740793,
 # normals 0.5495412, albedo 0.7155893
-CLI_SPP, CLI_ADAPTIVE_SPP = 32, 64
+CLI_SPP, CLI_PT_SPP, CLI_ADAPTIVE_SPP = 32, 16, 48   # the file's, and cut to fit
 CLI_PT_MEAN = (0.06630, 0.08103)
 CLI_ADAPTIVE_MEAN = (0.06667, 0.08149)
 CLI_DEBUG_MEANS = {"normals": (0.49459, 0.60450), "albedo": (0.64403, 0.78715)}
@@ -463,7 +494,7 @@ SHARDED_SPP = 8
 SHARDED_GLOO_RANKS = 3
 SHARDED_VCM_RANKS = 2
 SHARDED_VCM_SMALL = (32, 32)
-SHARDED_VCM_ITERATIONS = 3
+SHARDED_VCM_ITERATIONS = 2
 SPAWN_TIMEOUT = 600.0
 DEVICES_SPP = 8
 # the viewer's scene (`cli view cornell`: the conductor tall box, path
@@ -475,6 +506,22 @@ VIEWER_ITERATIONS = 3
 VIEWER_TIMEOUT = 240.0
 VALIDATE_SIZE = (64, 64)
 VALIDATE_SPP = 4
+# the walks' slice: the shading showcase under MS_BACKEND = "walk" at its
+# full size, one warm and one timed iteration, gated by +-10% of the port's
+# 64x64 4-spp walked CPU render's mean luminance (`python -m
+# tests.shading_reference_means 64 both walk`: port 0.0704431, JAX
+# 0.0704544); profiled at WALK_PROFILE_SIZE
+WALK_ITERATIONS = 1
+WALK_SHOWCASE_REFERENCE = 0.0704431
+WALK_SHOWCASE_MEAN = (0.06340, 0.07749)
+WALK_PROFILE_SIZE = (128, 128)
+# the NanoVDB cloud through `cli render`: bench config 4's 24^3 density as a
+# BLOSC .nvdb in the Cornell scene files' medium
+NVDB_SIZE = (384, 384)
+NVDB_SPP = 8
+NVDB_PATH_LENGTH = 10   # bench config 4's
+# denoise_eval's protocol with its ground truth cut to fit the time limit
+DENOISE_GT_SPP = 1024
 
 
 def _shading_showcase():
@@ -489,9 +536,9 @@ def _shading_showcase():
 
 def showcase_scene(film, dev, max_path_length=16):
   """The all-classes showcase, staged and frozen on `dev`, with blue noise."""
-  scene, config = _shading_showcase().showcase(
+  scene, config = staged("shading showcase", _shading_showcase().showcase(
       cornell, scene_builder, scene_types, spectrum, spectral_data, film_size=film,
-      max_path_length=max_path_length).build(device=dev)
+      max_path_length=max_path_length), dev)
   return scene, dataclasses.replace(config, blue_noise=True)
 
 
@@ -502,7 +549,7 @@ def showcase_scene(film, dev, max_path_length=16):
 # each stored vertex and merged photon; at 16x16 one outlier pixel moves
 # the mean by 0.42%, near the 0.5% bound)
 SHADING_E2E = (
-    ("shading showcase spectral blue noise 32x32", lambda d: showcase_scene((32, 32), d), None, 2,
+    ("shading showcase spectral blue noise 32x32", lambda d: showcase_scene((32, 32), d), None, 1,
      ("intersect_brute2", "occluded_brute2")),
     ("shading showcase VCM mpl 4 32x32",
      lambda d: showcase_scene((32, 32), d, max_path_length=4),
@@ -678,18 +725,27 @@ def test_rays(rng, v0, e1, e2, n: int, dev, inside=None):
 ROOM = ((-0.95, 0.05, -0.95), (0.95, 1.95, 0.95))  # inside the Cornell room
 
 
+def staged(label, builder, dev):
+  """`builder` frozen on `dev`, saying which BVH builder staged it (the
+  native library's, or numpy's where the library does not build)."""
+  out = builder.build(device=dev)
+  say("stage", f"{label} {builder.film_size[0]}x{builder.film_size[1]}: "
+      f"{out[0].tri_v0.shape[0]} triangles, BVH built by {builder.bvh_builder}")
+  return out
+
+
 def cornell_scene(film, mpl, dev):
-  return cornell.build_cornell_box(film_size=film, diffuse_only=True,
-                                   max_path_length=mpl).build(device=dev)
+  return staged("cornell", cornell.build_cornell_box(film_size=film, diffuse_only=True,
+                                                     max_path_length=mpl), dev)
 
 
 def materials_scene(film, dev):
-  return materials.build_materials_scene(film).build(device=dev)
+  return staged("materials", materials.build_materials_scene(film), dev)
 
 
 def bigscene_scene(film, dev, fat_rows=True):
   """Bigscene on `dev`; without fat rows the trace dispatch takes K7/K8."""
-  scene, config = bigscene.build_bigscene(film).build(device=dev)
+  scene, config = staged("bigscene", bigscene.build_bigscene(film), dev)
   if not fat_rows:
     scene = scene._replace(bvh=scene_types.without_fat_rows(scene.bvh))
   return scene, config
@@ -1578,12 +1634,12 @@ def captured_vcm_phase(label, scene, config, options, names, dev):
 
 
 def volumetric_scene(film, dev):
-  return volumetric.volumetric(film).build(device=dev)
+  return staged("volumetric", volumetric.volumetric(film), dev)
 
 
 def subsurface_scene(film, dev):
-  return volumetric.subsurface_cornell(film, scene_types.SubsurfaceClass.RandomWalk).build(
-      device=dev)
+  return staged("subsurface", volumetric.subsurface_cornell(
+      film, scene_types.SubsurfaceClass.RandomWalk), dev)
 
 
 def main_path_volumetric(scene, config, dev):
@@ -1980,8 +2036,9 @@ def cli_phase(dev):
   pt_exr = work / "pt.exr"
   t0 = time.perf_counter()
   proc = subprocess.run([sys.executable, "-m", "etx_tracer_tpu_torch.cli", "render", scene_file,
-                         "-o", str(pt_exr)], cwd=str(Path(__file__).resolve().parent),
-                        capture_output=True, text=True, timeout=600)
+                         "-o", str(pt_exr), "--spp", str(CLI_PT_SPP)],
+                        cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                        timeout=600)
   seconds = time.perf_counter() - t0
   check(proc.returncode == 0, f"cli render exited {proc.returncode}:\n{proc.stderr[-3000:]}")
   for line in proc.stderr.splitlines():
@@ -1995,7 +2052,7 @@ def cli_phase(dev):
         and set(launched) == {"brute_trace.intersect", "brute_trace.occluded"},
         f"cli render: the PT path launched {launched}, not K1 and K2")
   mean = gate_cli_image("cli render (pt)", pt_exr, CLI_PT_MEAN, size)
-  say("cli", f"python -m etx_tracer_tpu_torch.cli render {size[0]}x{size[1]} {CLI_SPP} spp: "
+  say("cli", f"python -m etx_tracer_tpu_torch.cli render {size[0]}x{size[1]} {CLI_PT_SPP} spp: "
       f"{seconds:.3f} s of subprocess (interpreter, imports, scene files and render), launches "
       f"K1 {counts['intersect']} / K2 {counts['occluded']}, image mean {mean:.5f}")
   out["pt"] = counts
@@ -2370,7 +2427,9 @@ def micro_phase(dev):
   wants = {"trace": ("intersect_bvh_fat", "intersect"),
            "trace_brute": ("intersect_brute2", "occluded_brute2", "intersect_woop",
                            "occluded_woop"),
-           "trace_sorted": ("intersect_bvh_fat",), "trace_oracle": ("intersect_bvh_fat",)}
+           "trace_sorted": ("intersect_bvh_fat",), "trace_oracle": ("intersect_bvh_fat",),
+           "sort": (), "mxu": (), "dispatch": ("intersect_brute2",),
+           "step": ("intersect_brute2", "occluded_brute2")}
   lines, counts = {}, {}
   for group, want in wants.items():
     reset_counts()
@@ -2450,6 +2509,279 @@ def woop_matmul_note(dev):
     say("woop_matmul", f"{name}: {chunks} x FP32 matmul (2^18, 8) x (8, {6 * woop_trace.CHUNK}) "
         f"{ms:.4f} ms (TF32 off)")
 
+# ---------------------------------------------------------------------------
+# The walks, the native library, NanoVDB, the micro groups, the denoiser
+# ---------------------------------------------------------------------------
+
+
+class Walks:
+  """The lobes' multiple-scattering backend set to `backend` (default the
+  Heitz walks) while it is entered, and set back after."""
+
+  def __init__(self, backend="walk"):
+    self.backend = backend
+
+  @classmethod
+  def off(cls):
+    return cls("lut")
+
+  def __enter__(self):
+    self._saved, lobes.MS_BACKEND = lobes.MS_BACKEND, self.backend
+    return self
+
+  def __exit__(self, *exc):
+    lobes.MS_BACKEND = self._saved
+
+
+def profile_bounce(label, scene, config, dev):
+  """The first bounce of iteration 0 (every lane alive), run once to warm
+  up and once under the profiler: its kernels, host reads and device time.
+  One bounce keeps the profiler's records few (an iteration of a walked
+  scene is about a million)."""
+  from torch.profiler import ProfilerActivity, profile
+  state = path_tracing.make_payload(scene, config, 0, device=dev)
+  path_tracing.pt_step(scene, config, state)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof, Counting() as counted:
+    t0 = time.perf_counter()
+    path_tracing.pt_step(scene, config, state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  busy_us, launched, _ = device_summary(prof)
+  say("profile", f"{label}, bounce 1 of {state.ray_o.shape[0]} lanes: {wall_ms:.1f} ms wall, "
+      f"device busy {busy_us / 1e3:.1f} ms, {launched} kernels, {counted.host_reads} host reads")
+
+
+def walk_phase(dev):
+  """The shading showcase at SHOWCASE_SIZE under the walks (its Principled
+  material walks all three lobes, its Plastic the plastic walk) through
+  K3/K4: WALK_ITERATIONS warm and WALK_ITERATIONS timed iterations, the
+  launch counts set to 0 before the warm-up and read after; gated (finite,
+  no negative luminance, mean luminance within WALK_SHOWCASE_MEAN); the
+  first bounce at WALK_PROFILE_SIZE profiled under the walks and under the
+  LUT (kernels and host reads); then the walked showcase and the walked
+  materials scene (its rough gold conductor walks) at 32x32, card against
+  CPU.
+  Returns the launch counts."""
+  with Walks():
+    t0 = time.perf_counter()
+    scene, config = showcase_scene(SHOWCASE_SIZE, dev)
+    staged_s = time.perf_counter() - t0
+    n, pool = WALK_ITERATIONS, 1 << 18
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sums, rays = path_tracing.render_samples_static(scene, config, 0, n, pool_size=pool, device=dev)
+    int(rays.item())
+    warm = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sums, rays = path_tracing.render_samples_static(scene, config, n, n, pool_size=pool, device=dev)
+    total = int(rays.item())
+    seconds = time.perf_counter() - t1
+    counts = read_counts()
+    img = film_mod.result_image(path_tracing.finalize_film(sums, n, config.film_width)).cpu().numpy()
+    say("walk", f"shading showcase under the walks {SHOWCASE_SIZE[0]}x{SHOWCASE_SIZE[1]} spectral "
+        f"mpl 16 pool 2^18 blue noise: staged in {staged_s:.2f} s; warm-up {n} spp {warm:.3f} s; "
+        f"{n} spp {seconds:.3f} s, {total} rays, {total / seconds / 1e6:.3f} Mrays/s; "
+        f"launches {counts}")
+    check(bool(np.isfinite(img).all()), "walked showcase: image has non-finite values")
+    y = img @ spectrum.RGB_TO_XYZ[1].astype(np.float64)
+    check(float(y.min()) >= -1e-5 * max(1.0, float(img.max())),
+          f"walked showcase: negative luminance {y.min()}")
+    lo, hi = WALK_SHOWCASE_MEAN
+    check(lo <= float(y.mean()) <= hi,
+          f"walked showcase: mean luminance {float(y.mean())} outside [{lo}, {hi}]")
+    say("walk", f"walked showcase image mean {float(img.mean()):.5f}, mean luminance "
+        f"{float(y.mean()):.5f} (CPU 64x64 {WALK_SHOWCASE_REFERENCE})")
+    check(counts["intersect_brute2"] > 0 and counts["occluded_brute2"] > 0
+          and not {k for k, c in counts.items() if c} - {"intersect_brute2", "occluded_brute2"},
+          f"the walked showcase launched {counts}")
+    del scene, sums
+    profile_bounce(f"walked showcase {WALK_PROFILE_SIZE[0]}x{WALK_PROFILE_SIZE[1]}",
+                   *showcase_scene(WALK_PROFILE_SIZE, dev), dev)
+    with Walks.off():
+      profile_bounce(f"LUT showcase {WALK_PROFILE_SIZE[0]}x{WALK_PROFILE_SIZE[1]}",
+                     *showcase_scene(WALK_PROFILE_SIZE, dev), dev)
+    card_vs_cpu("walked shading showcase 32x32 1 spp", lambda d: showcase_scene((32, 32), d), 1)
+    card_vs_cpu("walked materials 32x32 4 spp",
+                lambda d: materials.build_materials_scene((32, 32)).build(device=d), 4)
+  return counts
+
+
+def _nvdb_writer():
+  """`tests/nvdb_writer.py`, loaded by its path (as `_shading_showcase`)."""
+  path = Path(__file__).resolve().parent / "tests" / "nvdb_writer.py"
+  spec = importlib.util.spec_from_file_location("nvdb_writer", path)
+  module = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(module)
+  return module
+
+
+def cloud_scene_files(directory: Path, grid_file: str) -> str:
+  """The Cornell scene files with a heterogeneous medium `cloud` read from
+  `grid_file` (in `directory`), the camera and every material in it."""
+  scene_file = assets.write_cornell_asset(str(directory))
+  mtl = Path(scene_file).with_suffix(".mtl")
+  text = mtl.read_text().replace("two_sided 1\n", "two_sided 1\next_medium cloud\n")
+  head = (f"newmtl et::medium\nid cloud\nscattering 4.0 4.0 4.0\nvolume {grid_file}\n\n"
+          "newmtl et::camera\norigin 0.0 1.0 3.82\ntarget 0.0 1.0 -6.18\nup 0.0 1.0 0.0\n"
+          "viewport 640 640\nfov 39.597755335771296\nclip-near 0.1\nclip-far 100.0\n"
+          "ext_medium cloud\n\n")
+  mtl.write_text(head + text)
+  return scene_file
+
+
+def nvdb_phase(dev):
+  """Bench config 4's cloud density written as a BLOSC .nvdb by the JAX-free
+  writer of `tests/nvdb_writer.py`, read back (through the native blosc
+  decoder) equal to the grid; the Cornell scene files with that grid as a
+  medium rendered by `cli render` in a subprocess at NVDB_SIZE, NVDB_SPP
+  spp and path length NVDB_PATH_LENGTH, by PT through K1 (no shadow ray reaches K2 in a medium); the same
+  files with the grid as a `.vol` rendered by `cli.main` in this process;
+  both gated and held to each other."""
+  work = Path(_build.BUILD_DIR) / "nvdb"
+  shutil.rmtree(work, ignore_errors=True)
+  work.mkdir(parents=True)
+  os.environ["ETX_TPU_CONFIG_DIR"] = str(work / "prefs")
+  grid = volumetric._expected_grid()
+  t0 = time.perf_counter()
+  _nvdb_writer().write_dense(str(work / "cloud.nvdb"), grid, codec=2)
+  back = nvdb.read_nvdb_density(str(work / "cloud.nvdb"))
+  check(back is not None and np.array_equal(back, np.maximum(grid, 0.0)),
+        "the BLOSC .nvdb cloud did not read back as its grid")
+  shutil.copy(volumetric._cloud_vol_path(), work / "cloud.vol")
+  say("nvdb", f"cloud {grid.shape} written as BLOSC .nvdb ({(work / 'cloud.nvdb').stat().st_size} "
+      f"bytes) and read back equal in {time.perf_counter() - t0:.2f} s")
+  size = f"{NVDB_SIZE[0]}x{NVDB_SIZE[1]}"
+  images = {}
+  for ext in ("nvdb", "vol"):
+    scene_file = cloud_scene_files(work / ext, f"../cloud.{ext}")
+    exr = work / f"{ext}.exr"
+    args = ["render", scene_file, "-o", str(exr), "--size", size, "--spp", str(NVDB_SPP),
+            "--max-path", str(NVDB_PATH_LENGTH)]
+    t0 = time.perf_counter()
+    if ext == "nvdb":
+      proc = subprocess.run([sys.executable, "-m", "etx_tracer_tpu_torch.cli", *args],
+                            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                            text=True, timeout=600)
+      check(proc.returncode == 0, f"cli render (.nvdb) exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+      for line in proc.stderr.splitlines():
+        say("nvdb", f"  {line}")
+      found = re.search(r"trace kernel launches: (\{.*\})", proc.stderr)
+      check(found is not None, "cli render (.nvdb) printed no launch counts")
+      launched = json.loads(found.group(1))
+      check(launched.get("brute_trace.intersect", 0) > 0
+            and set(launched) <= {"brute_trace.intersect", "brute_trace.occluded"},
+            f"cli render (.nvdb) launched {launched}, not K1")
+    else:
+      reset_counts()
+      cli.main(args)
+      launched = {k: c for k, c in read_counts().items() if c}
+    seconds = time.perf_counter() - t0
+    img = image_io.load_exr(str(exr))
+    check(img.shape == (NVDB_SIZE[1], NVDB_SIZE[0], 3) and bool(np.isfinite(img).all())
+          and float(img.min()) >= 0.0, f"cloud ({ext}): image shape {img.shape} or values")
+    say("nvdb", f"cli render, the grid as .{ext}: {seconds:.3f} s "
+        f"({'subprocess' if ext == 'nvdb' else 'in process'}), launches {launched}, image mean "
+        f"{float(img.mean()):.6f}")
+    images[ext] = img
+  same_image("nvdb", "cloud .nvdb (cli render) vs .vol", images["nvdb"], images["vol"])
+
+
+def native_phase(dev):
+  """The native library: the compiler, the build, and what takes it. The
+  bigscene BVH built natively and by numpy (K5-K8 on each tree, timed and
+  held bit-equal to their plain walks on the native one); the OBJ scene
+  files of the CLI parsed natively, frozen to the Python parse's tables; a
+  PIZ EXR round trip (HALF and FLOAT). Fails if the library does not
+  build."""
+  gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+  say("native", f"{gxx.stdout.splitlines()[0] if gxx.returncode == 0 else 'no g++'}; zlib.h "
+      f"{'present' if Path('/usr/include/zlib.h').exists() else 'missing'}")
+  seconds = native.build()
+  check(native.load() is not None, f"the native library did not load: {native.failure()}")
+  say("native", f"library {native.library_path().name} (g++ {seconds:.2f} s, 0: built already)")
+
+  b = bigscene.build_bigscene((64, 64))
+  arrays, _ = b.arrays()
+  check(b.bvh_builder == "native", f"bigscene's BVH was built by {b.bvh_builder}")
+  v0, e1, e2 = (arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2"))
+  t0 = time.perf_counter()
+  bvh_build.build_bvh(v0, e1, e2)
+  t_native = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  tree_np = bvh_build.build_bvh_numpy(v0, e1, e2)
+  t_numpy = time.perf_counter() - t0
+  trees = {"native": scene_types.bvh_from_arrays(bvh_build.kernel_tables(arrays), dev)}
+  np_arrays = {**arrays, **{f"bvh.{k}": v for k, v in tree_np.items() if v is not None}}
+  trees["numpy"] = scene_types.bvh_from_arrays(bvh_build.kernel_tables(np_arrays), dev)
+  say("native", f"bigscene BVH: native {t_native:.3f} s, {trees['native'].node_table.shape[0]} "
+      f"nodes, {trees['native'].fat_table.shape[0]} fat rows; numpy {t_numpy:.3f} s, "
+      f"{trees['numpy'].node_table.shape[0]} nodes, {trees['numpy'].fat_table.shape[0]} fat rows")
+  tris = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (v0, e1, e2)]
+  rays = test_rays(np.random.default_rng(20261019), *tris, RAYS, dev, inside=ROOM)
+  for name in ("intersect_bvh_fat", "occluded_bvh_fat", "intersect_bvh", "occluded_bvh"):
+    ms = {}
+    for label, tree in trees.items():
+      if name in ("intersect_bvh", "occluded_bvh"):
+        tree = scene_types.without_fat_rows(tree)
+      geometry = (tris, tree)
+      if label == "native":
+        compare(name, geometry, rays, None)
+      ms[label] = kernel_ms(lambda g=geometry: kernel_call(name, g)(*rays), KERNELS[name][2], 20)
+    say("native", f"{name} on 2^18 bigscene rays: native tree {ms['native']:.4f} ms, numpy tree "
+        f"{ms['numpy']:.4f} ms a launch (bit-equal to the plain walk on the native tree)")
+
+  work = Path(_build.BUILD_DIR) / "native"
+  shutil.rmtree(work, ignore_errors=True)
+  scene_file = assets.write_cornell_asset(str(work / "scene"))
+  obj = str(Path(scene_file).with_suffix(".obj"))
+  check(native.parse_obj_native(obj) is not None, "the native OBJ parse failed")
+  parsed, _ = json_scene.load_scene(scene_file).arrays()
+  saved = native.parse_obj_native
+  native.parse_obj_native = lambda *a, **k: None
+  try:
+    python, _ = json_scene.load_scene(scene_file).arrays()
+  finally:
+    native.parse_obj_native = saved
+  check(set(parsed) == set(python) and all(np.array_equal(np.asarray(parsed[k]),
+                                                          np.asarray(python[k])) for k in parsed),
+        "the native OBJ parse froze other tables than the Python parse")
+  say("native", f"the CLI's Cornell scene files parsed natively: {parsed['tri_v0'].shape[0]} "
+      "triangles, the Python parse's tables")
+
+  img = np.random.default_rng(3).uniform(0.0, 4.0, (64, 96, 3)).astype(np.float32)
+  img[:, :48] = 0.5   # a flat half, so PIZ blocks compress
+  for half in (False, True):
+    path = work / f"piz{int(half)}.exr"
+    image_io.save_exr(str(path), img, compression="piz", half=half)
+    raw = path.read_bytes()
+    tag = b"compression\x00compression\x00"
+    back = image_io.load_exr(str(path))
+    want = img.astype(np.float16).astype(np.float32) if half else img
+    check(raw[raw.index(tag) + len(tag) + 4] == 4 and np.array_equal(back, want[::-1]),
+          f"PIZ EXR round trip (half={half})")
+  say("native", "PIZ EXR round trip, FLOAT and HALF: equal")
+
+
+def denoise_phase(dev):
+  """`benchmarks/denoise_eval` on the card with its ground truth cut to
+  DENOISE_GT_SPP spp: every MSE and SSIM finite, the denoised images closer
+  to the ground truth than the noisy ones away from the emitter edges."""
+  t0 = time.perf_counter()
+  out = denoise_eval.run(dev, gt_spp=DENOISE_GT_SPP)
+  for row in out:
+    check(all(np.isfinite(r["mse"]) and 0.0 < r["ssim"] <= 1.0 for r in row["per_depth"]),
+          f"denoise_eval {row['spp']} spp: {row}")
+    check(row["best_mse_reduction_x_excl_top5pct"] > 1.0,
+          f"denoise_eval {row['spp']} spp: no reduction of the interior MSE")
+  say("denoise", f"denoise_eval ({DENOISE_GT_SPP}-spp ground truth) in "
+      f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+          f"{r['spp']} spp MSE {r['mse_noisy']:.3e} -> best interior reduction "
+          f"{r['best_mse_reduction_x_excl_top5pct']:.2f}x" for r in out))
+
+
 
 def main() -> int:
   if not torch.cuda.is_available():
@@ -2476,7 +2808,7 @@ def main() -> int:
   cornell_512 = cornell_scene((512, 512), 1023, dev)
   materials_512 = materials_scene((512, 512), dev)
   bigscene_512 = bigscene_scene((512, 512), dev)
-  caustics_scene = caustics.build_caustics_scene((512, 512)).build(device=dev)[0]
+  caustics_scene = staged("caustics", caustics.build_caustics_scene((512, 512)), dev)[0]
   cornell_geo = (list(cornell_512[0][:3]), None)
   mat_geo = (list(materials_512[0][:3]), None)
   big_geo = (list(bigscene_512[0][:3]), bigscene_512[0].bvh)
@@ -2549,7 +2881,7 @@ def main() -> int:
   subsurface_384 = subsurface_scene(VOLUMETRIC_SIZE, dev)
   counts_sss = main_path_subsurface(*subsurface_384, dev)
   profile_step_mix("subsurface 384x384", *subsurface_384, dev)
-  caustics_256 = caustics.build_caustics_scene(VCM_SIZE).build(device=dev)
+  caustics_256 = staged("caustics", caustics.build_caustics_scene(VCM_SIZE), dev)
   counts_cvcm = main_path_caustics(*caustics_256, dev)
   rows_cvcm = captured_vcm_phase("caustics VCM", *caustics_256, vcm.VCMOptions(),
                                  ("intersect_brute2", "occluded_brute2"), dev)
@@ -2576,6 +2908,10 @@ def main() -> int:
   atmosphere_builder.film_size = (32, 32)
   end_to_end(atmosphere_builder)
   counts_micro = micro_phase(dev)
+  counts_walk = walk_phase(dev)
+  nvdb_phase(dev)
+  native_phase(dev)
+  denoise_phase(dev)
 
   launches = {"intersect": counts["intersect"], "occluded": counts["occluded"],
               "intersect_brute2": counts_mat["intersect_brute2"],
@@ -2619,7 +2955,9 @@ def main() -> int:
       f"caustics VCM {counts_sharded_vcm['intersect']} / {counts_sharded_vcm['occluded']}")
   say("kernels", f"K3/K4 launches on the shading showcase path "
       f"{counts_show['intersect_brute2']} / {counts_show['occluded_brute2']} "
-      f"({SHOWCASE_ITERATIONS} warm + {SHOWCASE_REPS} x {SHOWCASE_ITERATIONS} spp)")
+      f"({SHOWCASE_ITERATIONS} warm + {SHOWCASE_REPS} x {SHOWCASE_ITERATIONS} spp), under the "
+      f"walks {counts_walk['intersect_brute2']} / {counts_walk['occluded_brute2']} "
+      f"({WALK_ITERATIONS} warm + {WALK_ITERATIONS} spp)")
   print(card_line, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   # one card: the run uses cuda:0 and nothing else

@@ -66,12 +66,28 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
   return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169
 
 
+def lerp(a, b, t):
+  return a * (1.0 - t) + b * t
+
+
 def sqr(x):
   return x * x
 
 
 def saturate(x: torch.Tensor) -> torch.Tensor:
   return torch.clamp(x, 0.0, 1.0)
+
+
+def orthonormalize(nrm: torch.Tensor, tan: torch.Tensor) -> torch.Tensor:
+  """tan with its component along nrm removed, normalised."""
+  return normalize(tan - dot(tan, nrm)[..., None] * nrm)
+
+
+def make_frame(tan, btn, nrm):
+  """A local frame. The JAX package stacks it into a (..., 3, 3) matrix;
+  here a frame is the (tan, btn, nrm) tuple that `to_local(*frame, v)` and
+  `from_local(*frame, v)` take."""
+  return (tan, btn, nrm)
 
 
 def orthonormal_basis(n: torch.Tensor):
@@ -217,3 +233,15 @@ def distance_to_sphere(o: torch.Tensor, d: torch.Tensor, center: torch.Tensor,
   a1 = -b + s
   t = torch.where(a0 < 0.0, torch.where(a1 < 0.0, 0.0, a1), a0)
   return torch.where(disc < 0.0, 0.0, t)
+
+
+def gamma_to_linear(v: torch.Tensor) -> torch.Tensor:
+  """The sRGB transfer function's inverse."""
+  return torch.where(v <= 0.04045, v / 12.92,
+                     torch.pow((torch.clamp(v, min=0.04045) + 0.055) / 1.055, 2.4))
+
+
+def linear_to_gamma(v: torch.Tensor) -> torch.Tensor:
+  """The sRGB transfer function."""
+  return torch.where(v <= 0.0031308, 12.92 * v,
+                     1.055 * torch.pow(torch.clamp(v, min=0.0031308), 1.0 / 2.4) - 0.055)

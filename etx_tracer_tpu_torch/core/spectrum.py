@@ -86,6 +86,10 @@ def xyz_to_rgb(xyz: torch.Tensor) -> torch.Tensor:
   return _mat3(XYZ_TO_RGB, xyz)
 
 
+def rgb_to_xyz(rgb: torch.Tensor) -> torch.Tensor:
+  return _mat3(RGB_TO_XYZ, rgb)
+
+
 # Wavelength importance sampling: the sech^2 map truncated to [390, 830].
 _SAMPLE_OFFSET = float.fromhex("0x1.35ce7a0000000p-5")
 _SAMPLE_SCALE = 1.0 - _SAMPLE_OFFSET
@@ -109,6 +113,11 @@ def spectral_to_xyz(value: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
   in_range = (wl >= kShortestWavelength) & (wl <= kLongestWavelength)
   xyz = xyz_bar(wl) * (value / Y_INTEGRAL)[..., None]
   return torch.where(in_range[..., None], xyz, 0.0)
+
+
+def black_body_radiation_maximum_wavelength(t_kelvins):
+  """Wien's displacement law: the peak wavelength (nm) at t_kelvins."""
+  return 2.8977729e6 / t_kelvins
 
 
 def black_body_radiation(wavelength_nm: torch.Tensor, t_kelvins) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Integrators: `path_tracing` (the pooled wavefront path tracer with NEE
-and MIS) and `vcm` (VCM, with BDPT, BDPTFast and light tracing as its
-option sets). Both render the Diffuse, Conductor, Dielectric, Thinfilm and
-Boundary classes in RGB or spectral mode, with media and subsurface
-scattering, lit by area emitters. Environment and directional emitters,
-the other material classes, textures, `models/debug.py` and multi-device
-rendering are later slices (ROADMAP Queue 1)."""
+and MIS, and its per-iteration, scatter-pool, mapped and adaptive drivers),
+`vcm` (VCM, with BDPT, BDPTFast and light tracing as its option sets) and
+`debug` (the 18 AOVs). They render every material class in RGB or
+spectral mode, with media and subsurface scattering, lit by area,
+environment and directional emitters; `parallel/mesh.py` shards them over
+ranks."""

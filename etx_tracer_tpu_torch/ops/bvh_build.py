@@ -1,22 +1,21 @@
-"""Host-side BVH construction (numpy), flattened to arrays for the device.
+"""Host-side BVH construction, flattened to arrays for the device.
 
-The port's own copy of the numpy builder of `etx_tracer_tpu/ops/bvh_build.py`
-(`compute_skip`, `build_fat_rows` and the binned-SAH `build_bvh`), so that
-both packages freeze the same tree from the same triangles. Binned SAH over
-16 bins, leaves of at most 4 triangles, depth capped at 60, emitted as a
-flattened depth-first 2-wide tree: an inner node's left child is the next
-node (i+1) and `node_left` stores the right child's index; a leaf stores the
-first entry of its range of the reordered primitive list in `node_left`.
+The port's copy of `etx_tracer_tpu/ops/bvh_build.py` (`compute_skip`,
+`build_fat_rows`, the binned-SAH `build_bvh`), so that both packages freeze
+the same tree from the same triangles. Binned SAH over 16 bins, leaves of
+at most 4 triangles, depth capped at 60, emitted as a flattened depth-first
+2-wide tree: an inner node's left child is the next node (i+1) and
+`node_left` stores the right child's index; a leaf stores the first entry
+of its range of the reordered primitive list in `node_left`.
 
-Builder choice: the port copies the numpy builder, not the JAX package's
-native C++ one (`etx_tracer_tpu/native/bvh_builder.cpp`), which the JAX
-package prefers when g++ can build it:
-- it is deterministic: the same triangles give the same arrays on every host;
-- it needs no compiler step beside nvcc;
-- it takes about 2 s on the 15,396-triangle bigscene (once, at staging);
-- the native and numpy trees differ in every array (node boxes, child links
-  and primitive order), so only a numpy tree can be compared array by array
-  with the JAX package's, with its native path turned off.
+Builder choice, as in the JAX package: the native C++ builder
+(`native/bvh_builder.cpp`, built with g++ at first use) when the library
+builds, else the numpy one here (`build_bvh_numpy`). The two trees differ
+in every array (node boxes, child links and primitive order) but hold the
+same triangles; each is deterministic. `build_tree` says which one built a
+tree, and `scene/builder.SceneBuilder` records it (`bvh_builder`). A test
+that compares trees, tables or renders with the JAX package pins both
+packages to one builder.
 
 `kernel_tables` turns a tree in this layout into the tables the BVH kernels
 read (`ops/bvh_trace.py`), once, when a scene is frozen. The fat-row
@@ -31,6 +30,8 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+
+from etx_tracer_tpu_torch import native
 
 _BINS = 16
 _LEAF_SIZE = 4
@@ -131,10 +132,28 @@ def check_depth(node_left: np.ndarray, node_count: np.ndarray) -> int:
   return depth
 
 
+def build_tree(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
+  """(the tree of triangles (v0, v0+e1, v0+e2) as `build_bvh` gives it, the
+  builder that built it: "native" or "numpy")."""
+  tree = native.build_bvh_native(v0, e1, e2)
+  if tree is None:
+    return build_bvh_numpy(v0, e1, e2), "numpy"
+  tree["node_skip"] = compute_skip(tree["node_left"], tree["node_count"])
+  tree["fat_rows"] = build_fat_rows(tree["node_min"], tree["node_max"], tree["node_left"],
+                                    tree["node_count"])
+  return tree, "native"
+
+
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> dict:
-  """Build from triangle vertices (v0, v0+e1, v0+e2). Returns a dict of
-  arrays: node_min, node_max, node_left, node_count, prim_index, node_skip
-  and fat_rows (None when the tree has no fat-row form)."""
+  """Build from triangle vertices (v0, v0+e1, v0+e2), natively when the
+  native library builds, else in numpy. Returns a dict of arrays:
+  node_min, node_max, node_left, node_count, prim_index, node_skip and
+  fat_rows (None when the tree has no fat-row form)."""
+  return build_tree(v0, e1, e2)[0]
+
+
+def build_bvh_numpy(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> dict:
+  """`build_bvh`'s tree built in numpy."""
   t = v0.shape[0]
   p1 = v0 + e1
   p2 = v0 + e2

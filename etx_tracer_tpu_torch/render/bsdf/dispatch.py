@@ -15,6 +15,10 @@ delta lobes that evaluate to zero; Void is a null lobe (the null result);
 Principled is the deterministic mixture of a conductor, a dielectric and a
 plastic view of the material by its metalness and transmission. Diffuse
 lanes run the variations of `variations` (`config.diffuse_variations`).
+The lobes that may walk (Diffuse, Plastic, Conductor, Dielectric, and
+Principled's three views) get their class's lanes as their mask, and
+Principled's views the lanes that pick each of them, so a walk runs on
+those lanes only (`lobes.MS_BACKEND`).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ _SAMPLERS = {MC.Translucent: lobes.translucent_sample, MC.Plastic: lobes.plastic
              MC.Conductor: lobes.conductor_sample, MC.Dielectric: lobes.dielectric_sample,
              MC.Thinfilm: lobes.thinfilm_sample, MC.Mirror: lobes.mirror_sample,
              MC.Boundary: lobes.boundary_sample, MC.Velvet: lobes.velvet_sample}
+# the lobes that take their class's lanes as a walk mask
+_WALK_CLASSES = frozenset({MC.Plastic, MC.Conductor, MC.Dielectric})
 # delta classes (Mirror, Thinfilm, Boundary) and Void evaluate to zero and
 # have no entry; Diffuse and Principled take their own arguments
 _EVALUATORS = {MC.Translucent: lobes.translucent_evaluate, MC.Plastic: lobes.plastic_evaluate,
@@ -70,7 +76,9 @@ def sample(scene, sd: lobes.ShadingData, rnd: torch.Tensor, spectral: bool = Fal
     if c == MC.Diffuse:
       out = lobes.diffuse_sample(scene, sd, rnd, spectral, variations, mask=m)
     elif c == MC.Principled:
-      out = _principled_sample(scene, sd, rnd, spectral)
+      out = _principled_sample(scene, sd, rnd, spectral, mask=m)
+    elif c in _WALK_CLASSES:
+      out = _SAMPLERS[c](scene, sd, rnd, spectral, mask=m)
     else:
       out = _SAMPLERS[c](scene, sd, rnd, spectral)
     result = _select(m, out, result)
@@ -91,7 +99,9 @@ def evaluate(scene, sd: lobes.ShadingData, w_o: torch.Tensor, spectral: bool = F
     if c == MC.Diffuse:
       b, p = lobes.diffuse_evaluate(scene, sd, w_o, spectral, variations, mask=m)
     elif c == MC.Principled:
-      b, p = _principled_evaluate(scene, sd, w_o, spectral)
+      b, p = _principled_evaluate(scene, sd, w_o, spectral, mask=m)
+    elif c in _WALK_CLASSES:
+      b, p = _EVALUATORS[c](scene, sd, w_o, spectral, mask=m)
     else:
       b, p = _EVALUATORS[c](scene, sd, w_o, spectral)
     bsdf = torch.where(m[..., None], b, bsdf)
@@ -191,27 +201,36 @@ def _principled_pdf(scene, sd, w_o, spectral):
   return p_c * metal + p_d * (1.0 - metal) * trans + p_p * (1.0 - metal) * (1.0 - trans)
 
 
-def _principled_sample(scene, sd, rnd, spectral):
+def _principled_sample(scene, sd, rnd, spectral, mask=None):
   """The conductor view's sample where rnd column 5 falls below the
   metalness, else the dielectric's where column 6 falls below the
-  transmission, else the plastic's."""
+  transmission, else the plastic's; each view walks on the lanes of `mask`
+  that pick it."""
   metal, trans = _principled_factors(scene, sd)
   sdc, sdd = _principled_views(sd)
   pick_metal = rnd[..., 5] < metal
   pick_trans = rnd[..., 6] < trans
-  non_metal = _select(pick_trans, lobes.dielectric_sample(scene, sdd, rnd, spectral),
-                      lobes.plastic_sample(scene, sdd, rnd, spectral))
-  return _select(pick_metal, lobes.conductor_sample(scene, sdc, rnd, spectral), non_metal)
+  m = torch.ones_like(pick_metal) if mask is None else mask
+  dielectric = m & ~pick_metal & pick_trans
+  plastic = m & ~pick_metal & ~pick_trans
+  non_metal = _select(pick_trans,
+                      lobes.dielectric_sample(scene, sdd, rnd, spectral, mask=dielectric),
+                      lobes.plastic_sample(scene, sdd, rnd, spectral, mask=plastic))
+  return _select(pick_metal,
+                 lobes.conductor_sample(scene, sdc, rnd, spectral, mask=m & pick_metal), non_metal)
 
 
-def _principled_evaluate(scene, sd, w_o, spectral):
+def _principled_evaluate(scene, sd, w_o, spectral, mask=None):
+  """The three views' evaluations weighted by metalness and transmission;
+  each view walks on the lanes of `mask` where its weight is above 0."""
   metal, trans = _principled_factors(scene, sd)
   sdc, sdd = _principled_views(sd)
   w_c = metal
   w_d = (1.0 - metal) * trans
   w_p = (1.0 - metal) * (1.0 - trans)
-  b_c, p_c = lobes.conductor_evaluate(scene, sdc, w_o, spectral)
-  b_d, p_d = lobes.dielectric_evaluate(scene, sdd, w_o, spectral)
-  b_p, p_p = lobes.plastic_evaluate(scene, sdd, w_o, spectral)
+  m = torch.ones_like(w_c, dtype=torch.bool) if mask is None else mask
+  b_c, p_c = lobes.conductor_evaluate(scene, sdc, w_o, spectral, mask=m & (w_c > 0.0))
+  b_d, p_d = lobes.dielectric_evaluate(scene, sdd, w_o, spectral, mask=m & (w_d > 0.0))
+  b_p, p_p = lobes.plastic_evaluate(scene, sdd, w_o, spectral, mask=m & (w_p > 0.0))
   bsdf = b_c * w_c[..., None] + b_d * w_d[..., None] + b_p * w_p[..., None]
   return bsdf, p_c * w_c + p_d * w_d + p_p * w_p

@@ -20,7 +20,8 @@ The numpy table builders are copied from the JAX package verbatim, so both
 packages build the same tables; each takes a few seconds and runs once per
 process. The JAX package reads them through one-hot matmuls; here a
 lookup is the bilinear (or trilinear) gather those matmuls compute. The
-Heitz walk (`multiscatter.py`, `MS_BACKEND = "walk"`) is a later slice.
+Heitz walks (`multiscatter.py`) replace these tables under
+`lobes.MS_BACKEND = "walk"`.
 """
 
 from __future__ import annotations

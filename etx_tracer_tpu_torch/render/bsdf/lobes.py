@@ -2,13 +2,17 @@
 the vMF rough diffuse), Translucent, Plastic, Conductor, Dielectric,
 Thinfilm, Mirror, Boundary and Velvet.
 
-Counterpart of `etx_tracer_tpu/render/bsdf/lobes.py`, with the JAX
-package's default multiple-scattering backend (`MS_BACKEND = "lut"`: the
-energy-compensation tables of `energy_lut.py`) for the rough conductor,
-dielectric and plastic lobes; its Heitz conductor, dielectric and plastic
-walks (`MS_BACKEND = "walk"`) are ROADMAP Queue 1 item 7. Conventions as
-there: `w_i` points TOWARD the surface; the normal frame is flipped so the
-incident ray arrives from local +z (`entering` records the flip);
+Counterpart of `etx_tracer_tpu/render/bsdf/lobes.py`. The module switch
+`MS_BACKEND` picks the multiple-scattering backend of the rough conductor,
+dielectric and plastic lobes, as in the JAX package: "lut" (the default)
+takes the energy-compensation tables of `energy_lut.py`, "walk" the Heitz
+random walks of `multiscatter.py`, stochastic and reference-faithful; the
+pdfs are the analytic ones under either. A walking lobe walks only the
+lanes of its `mask` (those whose result the caller reads; `dispatch`
+passes each class's lanes), so a bounce with none of them runs no trip.
+Conventions as there: `w_i` points TOWARD the surface; the normal frame is
+flipped so the incident ray arrives from local +z (`entering` records the
+flip);
 responses are (R, C) tensors, C = 1 spectral, C = 3 RGB. Smooth conductors
 and dielectrics (roughness <= 1e-4) take exact delta forms. Colours,
 roughness and (in `dispatch`) Principled's metalness and transmission read
@@ -31,6 +35,11 @@ from etx_tracer_tpu_torch.render.bsdf import energy_lut
 from etx_tracer_tpu_torch.render.bsdf import multiscatter as ms
 
 kDeltaAlpha = em.kDeltaAlphaThreshold
+
+# The multiple-scattering backend of the rough conductor, dielectric and
+# plastic lobes: "lut" (energy-compensation tables, no loop) or "walk" (the
+# Heitz walks, one host read a trip).
+MS_BACKEND = "lut"
 
 # RGB mode evaluates a thin film at one wavelength per channel, jittered in
 # the channel's band
@@ -332,11 +341,12 @@ def mirror_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = Fa
 
 # ---------------------------------------------------------------------------
 # Conductor: exact delta reflection when smooth, the energy-compensated LUT
-# lobe when rough
+# lobe (or the Heitz walk) when rough
 # ---------------------------------------------------------------------------
 
 
-def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False,
+                     mask=None) -> BSDFSampleR:
   frame, _ = normal_frame(sd)
   alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
@@ -346,7 +356,12 @@ def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool =
   def fres(cos_t):
     return _fresnel_at(scene, sd, cos_t, spectral)
 
-  w_o_ms, energy, pdf_rough = energy_lut.conductor_sample_lut(fres, w_i_l, alpha_c, rnd)
+  pdf_rough = None
+  if MS_BACKEND == "lut":
+    w_o_ms, energy, pdf_rough = energy_lut.conductor_sample_lut(fres, w_i_l, alpha_c, rnd)
+  else:
+    w_o_ms, energy, _ = ms.conductor_sample_walk(fres, w_i_l, alpha_c, rnd,
+                                                 active0=~delta if mask is None else mask & ~delta)
   refl = _reflectance(scene, sd, spectral)
 
   # delta lanes: mirror reflection with the Fresnel term at the incident cosine
@@ -357,6 +372,9 @@ def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool =
   weight = refl * torch.where(delta[..., None], f_delta, energy)
   ok = w_o_l[..., 2] > em.kEpsilon
   weight = torch.where(ok[..., None], weight, 0.0)
+  if pdf_rough is None:
+    # the walk's density: D / ((1 + Lambda) 4 cos_i) + cos_o
+    pdf_rough = mf.ms_pdf(w_i_l, w_o_l, alpha_c)
   pdf = torch.where(ok, torch.where(delta, 1.0, pdf_rough), 0.0)
 
   w_o = em.from_local(*frame, w_o_l)
@@ -366,8 +384,11 @@ def conductor_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool =
                      *_flags(r, dev, delta, False, True), sd.medium)
 
 
-def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
-  """Energy-compensated closed form; zero on delta lanes."""
+def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False,
+                       mask=None):
+  """The energy-compensated closed form, or the walk's estimate (its stream
+  seeded from the bits of w_o + uv, walked on the lanes of `mask`); zero
+  on delta lanes. The pdf is the sampling density of the backend."""
   frame, _ = normal_frame(sd)
   alpha = _roughness(sd, scene)
   alpha_c = mf.clamp_alpha(alpha)
@@ -378,8 +399,14 @@ def conductor_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool
   def fres(cos_t):
     return _fresnel_at(scene, sd, cos_t, spectral)
 
-  value = energy_lut.conductor_eval_lut(fres, w_i_l, w_o_l, alpha_c)
-  pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, alpha_c)
+  if MS_BACKEND == "lut":
+    value = energy_lut.conductor_eval_lut(fres, w_i_l, w_o_l, alpha_c)
+    pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, alpha_c)
+  else:
+    value, _ = ms.conductor_eval_walk(fres, w_i_l, w_o_l, alpha_c, w_o[..., 0] + sd.tex[..., 0],
+                                      w_o[..., 1] + sd.tex[..., 1],
+                                      active0=ok if mask is None else ok & mask)
+    pdf = mf.ms_pdf(w_i_l, w_o_l, alpha_c)
   bsdf = _reflectance(scene, sd, spectral) * value
   return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
 
@@ -390,13 +417,16 @@ def conductor_pdf(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = Fa
   w_i_l = em.to_local(*frame, -sd.w_i)
   w_o_l = em.to_local(*frame, w_o)
   ok = (w_i_l[..., 2] > em.kEpsilon) & (w_o_l[..., 2] > em.kEpsilon) & ~_is_delta_alpha(alpha)
-  pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, mf.clamp_alpha(alpha))
+  if MS_BACKEND == "lut":
+    pdf = energy_lut.conductor_pdf_lut(w_i_l, w_o_l, mf.clamp_alpha(alpha))
+  else:
+    pdf = mf.ms_pdf(w_i_l, w_o_l, mf.clamp_alpha(alpha))
   return torch.where(ok, pdf, 0.0)
 
 
 # ---------------------------------------------------------------------------
 # Dielectric: exact delta reflect/refract when smooth; rough lanes take the
-# single-scatter VNDF sample scaled by the 1/E_d compensation
+# single-scatter VNDF sample scaled by the 1/E_d compensation, or the walk
 # ---------------------------------------------------------------------------
 
 
@@ -434,7 +464,20 @@ def _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral):
   return torch.abs(prob * dwh) + torch.abs(w_o_l[..., 2])
 
 
-def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+def _walk_fresnel(scene, sd, ent, spectral):
+  """The walks' Fresnel closures: (fresnel(cos, outside) on the side the
+  walk is on, monochromatic(response))."""
+  def fres_walk(cos_t, outside):
+    return _fresnel_at(scene, sd, cos_t, spectral, swap=torch.logical_xor(ent, outside))
+
+  def mono(v):
+    return spx.monochromatic(v, spectral)
+
+  return fres_walk, mono
+
+
+def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False,
+                      mask=None) -> BSDFSampleR:
   frame, ent = normal_frame(sd)
   alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
@@ -486,12 +529,31 @@ def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool 
   ok = torch.where(pick_reflect, w_o_l[..., 2] > 0.0, w_o_l[..., 2] < 0.0)
   weight = torch.where(ok[..., None], weight, 0.0)
 
-  # rough lanes keep the single-scatter sample (its weight g2/g1 is
-  # f_ss / p) and gain the lost multiple-scatter energy through the same
-  # 1/E_d(mu_i) compensation the evaluation applies
-  a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
-  comp = energy_lut.dielectric_compensation(w_i_l[..., 2], a_iso, eta)
-  weight = torch.where(delta[..., None], weight, weight * comp[..., None])
+  if MS_BACKEND == "lut":
+    # rough lanes keep the single-scatter sample (its weight g2/g1 is
+    # f_ss / p) and gain the lost multiple-scatter energy through the same
+    # 1/E_d(mu_i) compensation the evaluation applies
+    a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
+    comp = energy_lut.dielectric_compensation(w_i_l[..., 2], a_iso, eta)
+    weight = torch.where(delta[..., None], weight, weight * comp[..., None])
+  else:
+    # rough lanes: the walk's direction, side and energy replace the
+    # single-scatter sample
+    fres_walk, mono = _walk_fresnel(scene, sd, ent, spectral)
+    wo_walk, e_walk, out_walk, escaped, _ = ms.dielectric_sample_walk(
+        fres_walk, mono, eta, w_i_l, alpha_c, rnd,
+        active0=~delta if mask is None else mask & ~delta)
+    e_mono = mono(e_walk)
+    tint = e_walk / torch.clamp(e_mono, min=1e-9)[..., None]
+    factor_w = em.sqr(1.0 / torch.clamp(eta, min=1e-6))
+    w_walk = tint * torch.where(out_walk[..., None], refl, scat * factor_w[..., None])
+    w_walk = torch.where((escaped & (e_mono > 0.0))[..., None], w_walk, 0.0)
+    rough = ~delta
+    pick_reflect = torch.where(rough, out_walk, pick_reflect)
+    w_o_l = torch.where(rough[..., None], wo_walk, w_o_l)
+    weight = torch.where(rough[..., None], w_walk, weight)
+    ok = torch.where(rough, escaped & (torch.abs(wo_walk[..., 2]) > em.kEpsilon), ok)
+    weight = torch.where(ok[..., None], weight, 0.0)
 
   pdf_rough = _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral)
   pdf = torch.where(ok, torch.where(delta, p_sel, pdf_rough), 0.0)
@@ -504,9 +566,12 @@ def dielectric_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool 
                      *_flags(r, sd.w_i.device, delta, False, pick_reflect), medium)
 
 
-def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
+def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False,
+                        mask=None):
   """Rough dielectric: the analytic single-scatter Walter terms scaled by
-  the 1/E_d compensation; zero on delta lanes."""
+  the 1/E_d compensation, or twice the walk's estimate times |cos_o| (its
+  stream seeded from the bits of w_o + uv, walked on the lanes of `mask`);
+  zero on delta lanes."""
   frame, ent = normal_frame(sd)
   alpha = _roughness(sd, scene)
   delta = _is_delta_alpha(alpha)
@@ -517,30 +582,37 @@ def dielectric_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: boo
   cos_o = w_o_l[..., 2]
   eta = _crossing_eta(scene, sd, ent, spectral)
   m, reflection = _half_vector(w_i_l, w_o_l, eta)
-
-  cos_im = em.dot(w_i_l, m)
-  f = _fresnel_at(scene, sd, cos_im, spectral, swap=~ent)
-  d = mf.ggx_d(m, alpha_c)
-  w_o_g = torch.where(reflection[..., None], w_o_l,
-                      torch.cat([w_o_l[..., :2], -w_o_l[..., 2:3]], dim=-1))
-  g = mf.ggx_g1(w_i_l, m, alpha_c) * mf.ggx_g1(w_o_g, m, alpha_c)
-
   refl_alb = _reflectance(scene, sd, spectral)
   scat_alb = _scattering(scene, sd, spectral)
 
-  im = cos_im
-  om = em.dot(w_o_l, m)
-  sqrt_denom = im + eta * om
-  # reflection: F D G2 / (4 cos_i |cos_o|)
-  f_refl = f * (d * g / torch.clamp(4.0 * cos_i * torch.abs(cos_o), min=1e-9))[..., None]
-  # transmission: |im om| (1-F) D G2 / (cos_i |cos_o| (im + eta om)^2): the
-  # eta^2 of the Walter term cancels the 1/eta^2 radiance transport factor
-  f_tran = (1.0 - f) * (torch.abs(im * om) * d * g / torch.clamp(
-      cos_i * torch.abs(cos_o) * em.sqr(sqrt_denom), min=1e-9))[..., None]
-  func = torch.where(reflection[..., None], refl_alb * f_refl, scat_alb * f_tran)
-  a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
-  comp = energy_lut.dielectric_compensation(torch.clamp(cos_i, min=1e-6), a_iso, eta)
-  bsdf = func * (comp * torch.abs(cos_o))[..., None]
+  if MS_BACKEND == "lut":
+    cos_im = em.dot(w_i_l, m)
+    f = _fresnel_at(scene, sd, cos_im, spectral, swap=~ent)
+    d = mf.ggx_d(m, alpha_c)
+    w_o_g = torch.where(reflection[..., None], w_o_l,
+                        torch.cat([w_o_l[..., :2], -w_o_l[..., 2:3]], dim=-1))
+    g = mf.ggx_g1(w_i_l, m, alpha_c) * mf.ggx_g1(w_o_g, m, alpha_c)
+    im = cos_im
+    om = em.dot(w_o_l, m)
+    sqrt_denom = im + eta * om
+    # reflection: F D G2 / (4 cos_i |cos_o|)
+    f_refl = f * (d * g / torch.clamp(4.0 * cos_i * torch.abs(cos_o), min=1e-9))[..., None]
+    # transmission: |im om| (1-F) D G2 / (cos_i |cos_o| (im + eta om)^2): the
+    # eta^2 of the Walter term cancels the 1/eta^2 radiance transport factor
+    f_tran = (1.0 - f) * (torch.abs(im * om) * d * g / torch.clamp(
+        cos_i * torch.abs(cos_o) * em.sqr(sqrt_denom), min=1e-9))[..., None]
+    func = torch.where(reflection[..., None], refl_alb * f_refl, scat_alb * f_tran)
+    a_iso = torch.sqrt(alpha_c[..., 0] * alpha_c[..., 1])
+    comp = energy_lut.dielectric_compensation(torch.clamp(cos_i, min=1e-6), a_iso, eta)
+    bsdf = func * (comp * torch.abs(cos_o))[..., None]
+  else:
+    fres_walk, mono = _walk_fresnel(scene, sd, ent, spectral)
+    walk = (cos_i > em.kEpsilon) & ~delta
+    value, _ = ms.dielectric_eval_walk(
+        fres_walk, mono, eta, w_i_l, w_o_l, reflection, alpha_c, w_o[..., 0] + sd.tex[..., 0],
+        w_o[..., 1] + sd.tex[..., 1], active0=walk if mask is None else walk & mask)
+    func = 2.0 * value * torch.where(reflection[..., None], refl_alb, scat_alb)
+    bsdf = func * torch.abs(cos_o)[..., None]
 
   pdf = _dielectric_pdf_ref(scene, sd, w_i_l, w_o_l, ent, eta, alpha_c, spectral)
   ok = (cos_i > em.kEpsilon) & (torch.abs(cos_o) > em.kEpsilon) & ~delta
@@ -588,12 +660,17 @@ def thinfilm_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = 
 
 # ---------------------------------------------------------------------------
 # Plastic: a Fresnel-weighted specular layer (the energy-compensated LUT
-# reflection lobe under the material's dielectric Fresnel) over diffuse
+# reflection lobe under the material's dielectric Fresnel, or the
+# dielectric walk on the reflection side) over diffuse
 # ---------------------------------------------------------------------------
 
 
-def plastic_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False):
-  frame, _ = normal_frame(sd)
+def plastic_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool = False,
+                     mask=None):
+  """(bsdf * cos, pdf) toward w_o; under "walk" the specular layer is twice
+  the dielectric walk's reflection estimate (walked on the lanes of
+  `mask`)."""
+  frame, ent = normal_frame(sd)
   w_i_l = em.to_local(*frame, -sd.w_i)
   w_o_l = em.to_local(*frame, w_o)
   cos_i = w_i_l[..., 2]
@@ -605,11 +682,19 @@ def plastic_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool =
   f = _fresnel_at(scene, sd, em.dot(w_i_l, m), spectral)
   f_mono = spx.monochromatic(f, spectral)
 
-  def fres_refl(cos_t):
-    return _fresnel_at(scene, sd, cos_t, spectral)
+  specular = _reflectance(scene, sd, spectral)
+  if MS_BACKEND == "lut":
+    def fres_refl(cos_t):
+      return _fresnel_at(scene, sd, cos_t, spectral)
 
-  spec_bsdf = (energy_lut.conductor_eval_lut(fres_refl, w_i_l, w_o_l, alpha)
-               * _reflectance(scene, sd, spectral))
+    spec_bsdf = energy_lut.conductor_eval_lut(fres_refl, w_i_l, w_o_l, alpha) * specular
+  else:
+    fres_walk, mono = _walk_fresnel(scene, sd, ent, spectral)
+    walk, _ = ms.dielectric_eval_walk(
+        fres_walk, mono, _crossing_eta(scene, sd, ent, spectral), w_i_l, w_o_l,
+        torch.ones_like(ok), alpha, w_o[..., 0] + sd.tex[..., 0], w_o[..., 1] + sd.tex[..., 1],
+        active0=ok if mask is None else ok & mask)
+    spec_bsdf = 2.0 * walk * specular
   diff_bsdf = (_scattering(scene, sd, spectral) * (1.0 - f)
                * (em.kInvPi * torch.clamp(cos_o, min=0.0))[..., None])
   bsdf = diff_bsdf + spec_bsdf
@@ -620,7 +705,8 @@ def plastic_evaluate(scene, sd: ShadingData, w_o: torch.Tensor, spectral: bool =
   return torch.where(ok[..., None], bsdf, 0.0), torch.where(ok, pdf, 0.0)
 
 
-def plastic_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False) -> BSDFSampleR:
+def plastic_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = False,
+                   mask=None) -> BSDFSampleR:
   """The specular reflection off a visible normal with the Fresnel term's
   probability (columns 0:3), else a cosine-weighted direction (3:5);
   weighted by the full evaluation over its density."""
@@ -635,7 +721,7 @@ def plastic_sample(scene, sd: ShadingData, rnd: torch.Tensor, spectral: bool = F
   w_diff_l = em.sample_cosine_distribution(rnd[..., 3:5], 1.0)
   w_o = em.from_local(*frame, torch.where(pick_spec[..., None], w_spec_l, w_diff_l))
 
-  bsdf, pdf = plastic_evaluate(scene, sd, w_o, spectral)
+  bsdf, pdf = plastic_evaluate(scene, sd, w_o, spectral, mask=mask)
   weight = torch.where(pdf[..., None] > 0, bsdf / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
   r = sd.w_i.shape[0]
   dev = sd.w_i.device

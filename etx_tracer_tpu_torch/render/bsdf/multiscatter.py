@@ -1,20 +1,24 @@
-"""Rough-diffuse multiple scattering: the Heitz walk and the vMF fit.
+"""Heitz multiple-scattering microfacet walks, and the vMF rough diffuse.
 
-Counterpart of the diffuse part of `etx_tracer_tpu/render/bsdf/multiscatter.py`:
-the height-correlated random walk on a rough diffuse microsurface (Heitz et
-al., "Multiple-Scattering Microfacet BSDFs with the Smith Model"), bounded
-at kOrderMax = 16 scattering events, for sampling (`diffuse_sample_walk`)
-and stochastic evaluation (`diffuse_eval_walk`), and the analytic vMF
-rough-diffuse BRDF of d'Eon & Weidlich (`vmf_diffuse_brdf`). The Heitz
-conductor, dielectric and plastic walks (the JAX package's non-default
-`MS_BACKEND = "walk"`) are ROADMAP Queue 1 item 7.
+Counterpart of `etx_tracer_tpu/render/bsdf/multiscatter.py`: the
+height-correlated random walks on a microsurface (Heitz et al.,
+"Multiple-Scattering Microfacet BSDFs with the Smith Model"), bounded at
+kOrderMax = 16 scattering events, for sampling and stochastic evaluation
+of a rough conductor (`conductor_sample_walk`, `conductor_eval_walk`), a
+rough dielectric (`dielectric_sample_walk`, `dielectric_eval_walk`; the
+plastic lobe's specular layer is its eval walk on the reflection side) and
+a rough diffuse surface (`diffuse_sample_walk`, `diffuse_eval_walk`), and
+the analytic vMF rough-diffuse BRDF of d'Eon & Weidlich
+(`vmf_diffuse_brdf`). The lobes take the conductor and dielectric walks
+under `lobes.MS_BACKEND = "walk"`; the default "lut" takes none of them.
 
 Each walk draws from a stream of its own, seeded from the bits of two
 floats (the sample's spare random columns, or the evaluated direction plus
 the uv), so its result for a lane depends on that lane alone. As in the
 JAX `lax.while_loop`, a trip runs over the whole wavefront while any lane
-is active and advances every lane's stream; the loop reads its condition
-on the host once a trip.
+of `active0` is active and advances every lane's stream; the loop reads its
+condition on the host once a trip. Every walk returns the stream's state
+after the loop last, beside its result.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from etx_tracer_tpu_torch.core import math as em
 from etx_tracer_tpu_torch.core import rng
+from etx_tracer_tpu_torch.render.bsdf import common as mf
 
 kOrderMax = 16
 _SQRT_PI = float(np.sqrt(np.float32(em.kPi)))
@@ -126,9 +131,143 @@ def sample_microfacet_normal(wi, alpha, rnd):
   return torch.where(bad[..., None], fallback, wm)
 
 
+def _mis_weight_conductor(wi, wo, alpha):
+  wh = em.normalize(wi + wo)
+  wh = wh * torch.where(wh[..., 2] > 0, 1.0, -1.0)[..., None]
+  d = mf.ggx_d(wh, alpha)
+  same = torch.all(torch.abs(wi + wo) < 1e-6, dim=-1)
+  return torch.where(same, 1.0, d)
+
+
 def _seed_from_floats(a, b):
   """A walk's stream, seeded from the bits of two float32 tensors."""
   return rng.seed(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _masked(active, new, old):
+  return torch.where(active[..., None] if old.dim() > 1 else active, new, old)
+
+
+def _start(w_i, c, active0):
+  """(h, energy, order, active) at a walk's start."""
+  r = w_i.shape[0]
+  dev = w_i.device
+  active = torch.ones(r, dtype=torch.bool, device=dev) if active0 is None else active0
+  return (torch.ones(r, device=dev), torch.ones((r, c), device=dev),
+          torch.zeros(r, dtype=torch.int32, device=dev), active)
+
+
+def conductor_sample_walk(fresnel_fn, w_i, alpha, rnd, active0=None):
+  """Sample a rough conductor's microsurface by a random walk. w_i local
+  (z > 0, away from the surface), alpha (R,2) clamped, rnd (R, >= 5):
+  columns 0:2 the first slope, 3:5 the stream's seed; fresnel_fn(cos) ->
+  (R,C). Only the lanes of `active0` walk. Returns (w_o local, energy
+  (R,C), zero where the walk did not escape, the stream's state)."""
+  r = w_i.shape[0]
+  state = _seed_from_floats(rnd[..., 3] + 0.123, rnd[..., 4] + 0.771)
+  w = -w_i
+  lam = _lambda(w, alpha)
+  c = fresnel_fn(torch.ones(r, device=w_i.device)).shape[-1]
+  h, energy, order, active = _start(w_i, c, active0)
+  escaped = torch.zeros(r, dtype=torch.bool, device=w_i.device)
+  while bool(active.any().item()):
+    c1 = _c1(h)
+    g1 = _g1(w, lam, c1)
+    state, u_h = rng.next_float(state)
+    h_new = sample_height(w, lam, c1, g1, h, u_h)
+    just_escaped = active & (h_new >= em.kMaxFloat * 0.5)
+    escaped = escaped | just_escaped
+    active = active & ~just_escaped
+
+    state, rnd2 = rng.next_2d(state)
+    slope_rnd = torch.where((order == 0)[..., None], rnd[..., 0:2], rnd2)
+    wm = sample_microfacet_normal(-w, alpha, slope_rnd)
+    i_dot_m = em.dot(-w, wm)
+    f = fresnel_fn(i_dot_m)
+    w_new = em.normalize(w + 2.0 * wm * i_dot_m[..., None])
+
+    too_many = active & (order + 1 > kOrderMax)
+    nan_bad = active & (~torch.isfinite(w_new[..., 2]) | ~torch.isfinite(h_new))
+    dead = too_many | nan_bad
+
+    energy = _masked(active, energy * f, energy)
+    energy = torch.where(dead[..., None], 0.0, energy)
+    w = _masked(active, w_new, w)
+    lam = _masked(active, _lambda(w_new, alpha), lam)
+    h = _masked(active, h_new, h)
+    order = order + active.to(torch.int32)
+    active = active & ~dead
+  # an escaped lane carries w as its outgoing direction
+  return w, torch.where(escaped[..., None], energy, 0.0), state
+
+
+def conductor_eval_walk(fresnel_fn, w_i, w_o, alpha, seed_a, seed_b, active0=None):
+  """Estimate a rough conductor's BSDF, cosine folded in, by one random walk
+  from w_i (local, z > 0) scored toward w_o: 0.5 x the single-scattering
+  term + the walk's multiple scattering, (R,C). The stream is seeded from
+  the bits of seed_a and seed_b. Only the lanes of `active0` walk. Returns
+  (the estimate, the stream's state)."""
+  r = w_i.shape[0]
+  state = _seed_from_floats(seed_a, seed_b)
+  wh = em.normalize(w_i + w_o)
+  d = mf.ggx_d(wh, alpha)
+  lam_i = _lambda(-w_i, alpha)
+  lam_o = _lambda(w_o, alpha)
+  g2 = 1.0 / (1.0 + (-lam_i - 1.0) + lam_o)
+  f_ss = fresnel_fn(em.dot(w_i, wh))
+  single = f_ss * (d * g2 / torch.clamp(4.0 * w_i[..., 2], min=1e-9))[..., None]
+  c = single.shape[-1]
+
+  def phase_reflection(w, lam, wo):
+    proj = torch.where(w[..., 2] < -0.9999, 1.0, lam * w[..., 2])
+    whr = em.normalize(-w + wo)
+    wdh = em.dot(-w, whr)
+    val = fresnel_fn(wdh) * (mf.ggx_d(whr, alpha) / torch.clamp(4.0 * proj, min=1e-9))[..., None]
+    ok = ((proj >= em.kEpsilon) & (whr[..., 2] >= 0.0) & (wdh >= em.kEpsilon)
+          & (w[..., 2] <= 0.9999))
+    return torch.where(ok[..., None], val, 0.0)
+
+  w = -w_i
+  lam = lam_i
+  h, energy, order, active = _start(w_i, c, active0)
+  multiple = torch.zeros((r, c), device=w_i.device)
+  wi_mis = torch.zeros(r, device=w_i.device)
+  while bool(active.any().item()):
+    c1 = _c1(h)
+    g1 = _g1(w, lam, c1)
+    state, u_h = rng.next_float(state)
+    h_new = sample_height(w, lam, c1, g1, h, u_h)
+    esc = active & (h_new >= em.kMaxFloat * 0.5)
+    active2 = active & ~esc
+    order_new = order + active2.to(torch.int32)
+
+    # NEE on the microsurface (order > 1)
+    phase = phase_reflection(w, lam, w_o)
+    g1_sh = _g1(w_o, lam_o, _c1(h_new))
+    i_contrib = energy * phase * g1_sh[..., None]
+    mis = wi_mis / torch.clamp(wi_mis + _mis_weight_conductor(-w, w_o, alpha), min=1e-20)
+    add = active2 & (order_new > 1)
+    multiple = multiple + torch.where(add[..., None], i_contrib * mis[..., None], 0.0)
+
+    # the next direction
+    state, rnd2 = rng.next_2d(state)
+    wm = sample_microfacet_normal(-w, alpha, rnd2)
+    i_dot_m = em.dot(-w, wm)
+    f = fresnel_fn(i_dot_m)
+    w_new = em.normalize(w + 2.0 * wm * i_dot_m[..., None])
+    energy = _masked(active2, energy * f, energy)
+    wi_mis = torch.where(active2 & (order_new == 1),
+                         _mis_weight_conductor(w_i, w_new, alpha), wi_mis)
+    bad = active2 & ((order_new > kOrderMax) | ~torch.isfinite(w_new[..., 2])
+                     | ~torch.isfinite(h_new))
+    w = _masked(active2, w_new, w)
+    lam = _masked(active2, _lambda(w_new, alpha), lam)
+    h = _masked(active2, h_new, h)
+    order = order_new
+    active = active2 & ~bad
+
+  ok = (w_i[..., 2] > 0.0) & (w_o[..., 2] > 0.0)
+  return torch.where(ok[..., None], 0.5 * single + multiple, 0.0), state
 
 
 def _sample_phase_diffuse(wm, rnd):
@@ -140,26 +279,17 @@ def _sample_phase_diffuse(wm, rnd):
   return x[..., None] * u + y[..., None] * v + z[..., None] * wm
 
 
-def _masked(active, new, old):
-  return torch.where(active[..., None] if old.dim() > 1 else active, new, old)
-
-
 def diffuse_sample_walk(w_i, alpha, albedo, rnd, active0=None):
   """Sample the rough-diffuse microsurface by a random walk. w_i local
   (z > 0, away from the surface), alpha (R,2) clamped, albedo (R,C), rnd
   (R, >= 5): columns 0:2 the first slope, 3:5 the stream's seed. Only the
   lanes of `active0` walk. Returns (w_o local, energy (R,C), zero where the
   walk did not escape, and the stream's state after the loop)."""
-  r = w_i.shape[0]
-  dev = w_i.device
   state = _seed_from_floats(rnd[..., 3] + 0.377, rnd[..., 4] + 0.911)
   w = -w_i
   lam = _lambda(w, alpha)
-  h = torch.ones(r, device=dev)
-  energy = torch.ones((r, albedo.shape[-1]), device=dev)
-  order = torch.zeros(r, dtype=torch.int32, device=dev)
-  active = torch.ones(r, dtype=torch.bool, device=dev) if active0 is None else active0
-  escaped = torch.zeros(r, dtype=torch.bool, device=dev)
+  h, energy, order, active = _start(w_i, albedo.shape[-1], active0)
+  escaped = torch.zeros(w_i.shape[0], dtype=torch.bool, device=w_i.device)
   while bool(active.any().item()):
     c1 = _c1(h)
     g1 = _g1(w, lam, c1)
@@ -194,18 +324,12 @@ def diffuse_eval_walk(w_i, w_o, alpha, albedo, seed_a, seed_b, active0=None):
   from w_i (local, z > 0) scored toward w_o: (R,C). The stream is seeded
   from the bits of seed_a and seed_b. Only the lanes of `active0` walk.
   Returns (the estimate, the stream's state after the loop)."""
-  r = w_i.shape[0]
-  dev = w_i.device
   state = _seed_from_floats(seed_a, seed_b)
   lam_o = _lambda(w_o, alpha)
   w = -w_i
   lam = _lambda(w, alpha)
-  h = torch.ones(r, device=dev)
-  c = albedo.shape[-1]
-  energy = torch.ones((r, c), device=dev)
-  order = torch.zeros(r, dtype=torch.int32, device=dev)
-  active = torch.ones(r, dtype=torch.bool, device=dev) if active0 is None else active0
-  res = torch.zeros((r, c), device=dev)
+  h, energy, order, active = _start(w_i, albedo.shape[-1], active0)
+  res = torch.zeros_like(energy)
   while bool(active.any().item()):
     c1 = _c1(h)
     g1 = _g1(w, lam, c1)
@@ -414,3 +538,220 @@ def vmf_diffuse_brdf(w_i, w_o, alpha, albedo):
   t4 = _fm(ui[..., None], uo[..., None], r[..., None], a)
   result = em.kInvPi * (t0 + t1 + t2) + t4
   return torch.where((r > 0.0)[..., None], result, albedo * em.kInvPi)
+
+
+# ---------------------------------------------------------------------------
+# The Heitz dielectric walk
+# ---------------------------------------------------------------------------
+
+
+def _refract_local(wi, wm, eta):
+  """wi refracted through the microfacet normal wm; eta (R,) the far side's
+  index over the near side's."""
+  cos_i = em.dot(wi, wm)
+  cos_t2 = 1.0 - (1.0 - cos_i * cos_i) / (eta * eta)
+  cos_t = -torch.sqrt(torch.clamp(cos_t2, min=0.0))
+  return wm * (cos_i / eta + cos_t)[..., None] - wi / eta[..., None]
+
+
+def _abgam(x):
+  g = (1.0 / 12.0, 1.0 / 30.0, 53.0 / 210.0, 195.0 / 371.0,
+       22999.0 / 22737.0, 29944523.0 / 19733142.0, 109535241009.0 / 48264275462.0)
+  k = 0.918938518
+  cont = g[6] / x
+  for gi in (g[5], g[4], g[3], g[2], g[1]):
+    cont = gi / (x + cont)
+  return k - x + (x - 0.5) * torch.log(x) + g[0] / (x + cont)
+
+
+def _gamma_fn(x):
+  return torch.exp(_abgam(x + 5.0)) / (x * (x + 1.0) * (x + 2.0) * (x + 3.0) * (x + 4.0))
+
+
+def _beta_fn(m, n):
+  return _gamma_fn(m) * _gamma_fn(n) / torch.clamp(_gamma_fn(m + n), min=1e-20)
+
+
+def _dielectric_step(fresnel_fn, mono_fn, eta, alpha, w, outside, slope_rnd, refl_rnd):
+  """One scattering event of the dielectric walk at the lanes' current
+  direction w (travelling) and side: (the new direction, the
+  event's Fresnel response, whether it reflected)."""
+  wi_cur = -w
+  wm = sample_microfacet_normal(wi_cur, alpha, slope_rnd)
+  i_dot_m = em.dot(wi_cur, wm)
+  f = fresnel_fn(i_dot_m, outside)
+  reflect = refl_rnd < mono_fn(f)
+  eta_cur = torch.where(outside, eta, 1.0 / eta)
+  w_refl = -wi_cur + 2.0 * wm * i_dot_m[..., None]
+  w_refr = em.normalize(_refract_local(wi_cur, wm, eta_cur))
+  return torch.where(reflect[..., None], w_refl, -w_refr), f, reflect
+
+
+def dielectric_sample_walk(fresnel_fn, mono_fn, eta, w_i, alpha, rnd, active0=None):
+  """Sample a rough dielectric's microsurface by a random walk. w_i local
+  with z > 0 (the caller folds the side in); fresnel_fn(cos, outside) ->
+  (R,C); mono_fn collapses a response to (R,); eta (R,): the inner index
+  over the outer for the walk's starting side; rnd (R, >= 5): columns 0:2
+  the first slope, 2 the first reflect-or-refract draw, 3:5 the stream's
+  seed. Only the lanes of `active0` walk.
+
+  Returns (w_o local, weight (R,C), zero where the walk did not escape,
+  outside (R,) bool, escaped (R,) bool, the stream's state); w_o is in the
+  walk's frame."""
+  r = w_i.shape[0]
+  dev = w_i.device
+  state = _seed_from_floats(rnd[..., 3] + 0.531, rnd[..., 4] + 0.207)
+  c = fresnel_fn(torch.ones(r, device=dev), torch.ones(r, dtype=torch.bool, device=dev)).shape[-1]
+  w = -w_i
+  lam = _lambda(w, alpha)
+  h, energy, order, active = _start(w_i, c, active0)
+  outside = torch.ones(r, dtype=torch.bool, device=dev)
+  escaped = torch.zeros(r, dtype=torch.bool, device=dev)
+  while bool(active.any().item()):
+    c1 = _c1(h)
+    g1 = _g1(w, lam, c1)
+    state, u_h = rng.next_float(state)
+    h_new = sample_height(w, lam, c1, g1, h, u_h)
+    just_escaped = active & (h_new >= em.kMaxFloat * 0.5)
+    escaped = escaped | just_escaped
+    active = active & ~just_escaped
+    h = _masked(active, h_new, h)
+
+    state, rnd2 = rng.next_2d(state)
+    state, rnd_r = rng.next_float(state)
+    first = order == 0
+    slope_rnd = torch.where(first[..., None], rnd[..., 0:2], rnd2)
+    refl_rnd = torch.where(first, rnd[..., 2], rnd_r)
+    new_w, f, reflect = _dielectric_step(fresnel_fn, mono_fn, eta, alpha, w, outside,
+                                         slope_rnd, refl_rnd)
+    energy = _masked(active, energy * torch.where(reflect[..., None], f, 1.0 - f), energy)
+    h = torch.where(active & ~reflect, -h, h)
+    outside = outside ^ (active & ~reflect)
+
+    too_many = active & (order + 1 > kOrderMax)
+    nan_bad = active & (~torch.isfinite(new_w[..., 2]) | ~torch.isfinite(h))
+    dead = too_many | nan_bad
+    energy = torch.where(dead[..., None], 0.0, energy)
+
+    w = _masked(active, new_w, w)
+    lam = _masked(active, _lambda(w, alpha), lam)
+    order = order + active.to(torch.int32)
+    active = active & ~dead
+  w_o = torch.where(outside[..., None], w, -w)
+  return w_o, torch.where(escaped[..., None], energy, 0.0), outside, escaped, state
+
+
+def _phase_reflection_d(fresnel_fn, w, lam, wo, alpha, outside):
+  """The reflection phase function of the microsurface toward wo."""
+  proj = torch.where(w[..., 2] < -0.9999, 1.0, lam * w[..., 2])
+  wh = em.normalize(-w + wo)
+  wdh = em.dot(-w, wh)
+  d = mf.ggx_d(wh, alpha)
+  val = fresnel_fn(wdh, outside) * (d / torch.clamp(4.0 * proj, min=1e-9))[..., None]
+  ok = ((w[..., 2] <= 0.9999) & (proj >= em.kEpsilon)
+        & (wh[..., 2] >= 0.0) & (wdh >= em.kEpsilon))
+  return torch.where(ok[..., None], val, 0.0)
+
+
+def _phase_transmission_d(fresnel_fn, w, lam, wo, eta_rel, alpha, outside):
+  """The transmission phase function of the microsurface toward wo."""
+  proj = torch.where(w[..., 2] < -0.9999, 1.0, lam * w[..., 2])
+  wh = em.normalize(-w + wo * eta_rel[..., None])
+  wh = wh * torch.where(wh[..., 2] > 0, 1.0, -1.0)[..., None]
+  i_dot_m = -em.dot(wh, w)
+  o_dot_m = em.dot(wo, wh)
+  d = mf.ggx_d(wh, alpha)
+  scalar = (eta_rel * eta_rel * i_dot_m * torch.clamp(-o_dot_m, min=0.0) * d
+            / torch.clamp(proj * em.sqr(i_dot_m + eta_rel * o_dot_m), min=1e-12))
+  val = (1.0 - fresnel_fn(i_dot_m, outside)) * scalar[..., None]
+  ok = (w[..., 2] <= 0.9999) & (proj >= em.kEpsilon) & (i_dot_m >= 0.0)
+  return torch.where(ok[..., None], val, 0.0)
+
+
+def _mis_weight_dielectric(wi, wo, reflection, eta, alpha):
+  wh_r = em.normalize(wi + wo)
+  wh_t = em.normalize(wi + wo * eta[..., None])
+  wh = torch.where(reflection[..., None], wh_r, wh_t)
+  wh = wh * torch.where(wh[..., 2] > 0, 1.0, -1.0)[..., None]
+  d = mf.ggx_d(wh, alpha)
+  same = reflection & torch.all(torch.abs(wi + wo) < 1e-6, dim=-1)
+  return torch.where(same, 1.0, d)
+
+
+def dielectric_eval_walk(fresnel_fn, mono_fn, eta, w_i, w_o, wo_outside, alpha, seed_a, seed_b,
+                         active0=None):
+  """Estimate a rough dielectric's BSDF by one random walk from w_i (local,
+  z > 0) scored toward w_o: 0.5 x the single-scattering term + the walk's
+  multiple scattering, (R,C). wo_outside (R,) bool: w_o leaves on the
+  incident side (a reflection). The stream is seeded from the bits of
+  seed_a and seed_b. Only the lanes of `active0` walk. Returns (the
+  estimate, the stream's state)."""
+  r = w_i.shape[0]
+  dev = w_i.device
+  state = _seed_from_floats(seed_a, seed_b)
+  c = fresnel_fn(torch.ones(r, device=dev), torch.ones(r, dtype=torch.bool, device=dev)).shape[-1]
+  wo_sh = torch.where(wo_outside[..., None], w_o, -w_o)
+  lam_sh = _lambda(wo_sh, alpha)
+
+  w = -w_i
+  lam = _lambda(w, alpha)
+  h, energy, order, active = _start(w_i, c, active0)
+  outside = torch.ones(r, dtype=torch.bool, device=dev)
+  single = torch.zeros((r, c), device=dev)
+  multiple = torch.zeros((r, c), device=dev)
+  wi_mis = torch.zeros(r, device=dev)
+  while bool(active.any().item()):
+    c1 = _c1(h)
+    g1 = _g1(w, lam, c1)
+    state, u_h = rng.next_float(state)
+    h_new = sample_height(w, lam, c1, g1, h, u_h)
+    esc = active & (h_new >= em.kMaxFloat * 0.5)
+    active2 = active & ~esc
+    h = _masked(active2, h_new, h)
+    order_new = order + active2.to(torch.int32)
+
+    # next-event estimation toward w_o: a reflection-type phase where the
+    # walk is on w_o's side, else a transmission
+    refl_cfg = outside == wo_outside
+    eta_rel = torch.where(outside, eta, 1.0 / eta)
+    wo_tgt = torch.where(outside[..., None], w_o, -w_o)
+    ph_r = _phase_reflection_d(fresnel_fn, w, lam, wo_tgt, alpha, outside)
+    ph_t = _phase_transmission_d(fresnel_fn, w, lam, wo_tgt, eta_rel, alpha, outside)
+    phase = torch.where(refl_cfg[..., None], ph_r, ph_t)
+
+    # single scattering: the closed-form G2/G1 (order 1)
+    g2_g1_refl = (1.0 + (-lam - 1.0)) / (1.0 + (-lam - 1.0) + lam_sh)
+    g2_g1_tran = (1.0 + (-lam - 1.0)) * _beta_fn(
+        torch.clamp(1.0 + (-lam - 1.0), min=1e-4), torch.clamp(1.0 + lam_sh, min=1e-4))
+    g2_g1 = torch.where(wo_outside, g2_g1_refl, g2_g1_tran)
+    g2_g1 = torch.where(torch.isfinite(g2_g1), g2_g1, 0.0)
+    is_first = active2 & (order_new == 1)
+    single = torch.where(is_first[..., None], phase * g2_g1[..., None], single)
+
+    # multiple scattering: shadowing G1 and the microsurface MIS (order > 1)
+    mis_other = _mis_weight_dielectric(-w, wo_tgt, refl_cfg, eta_rel, alpha)
+    mis = wi_mis / torch.clamp(wi_mis + mis_other, min=1e-20)
+    h_sh = torch.where(outside == wo_outside, h, -h)
+    g1_sh = _g1(wo_sh, lam_sh, _c1(h_sh))
+    later = active2 & (order_new > 1)
+    multiple = multiple + torch.where(later[..., None], phase * (g1_sh * mis)[..., None], 0.0)
+
+    # the next direction
+    state, rnd2 = rng.next_2d(state)
+    state, rnd_r = rng.next_float(state)
+    new_w, _, reflect = _dielectric_step(fresnel_fn, mono_fn, eta, alpha, w, outside,
+                                         rnd2, rnd_r)
+    h = torch.where(active2 & ~reflect, -h, h)
+    outside = outside ^ (active2 & ~reflect)
+    wi_mis = torch.where(active2 & (order_new == 1),
+                         _mis_weight_dielectric(w_i, new_w, reflect, eta, alpha), wi_mis)
+
+    bad = active2 & ((order_new > kOrderMax) | ~torch.isfinite(new_w[..., 2])
+                     | ~torch.isfinite(h) | (torch.abs(new_w[..., 2]) <= em.kEpsilon))
+    single = torch.where(bad[..., None], 0.0, single)
+    multiple = torch.where(bad[..., None], 0.0, multiple)
+    w = _masked(active2, new_w, w)
+    lam = _masked(active2, _lambda(w, alpha), lam)
+    order = order_new
+    active = active2 & ~bad
+  return 0.5 * single + multiple, state

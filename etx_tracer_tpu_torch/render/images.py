@@ -7,8 +7,9 @@ luminance x sin(theta) distribution) and `pdf_at` (that distribution's
 density), and the host-side `build_bank`. Every image lives in one padded
 (I, H, W, 4) bank beside its true size; lookups are per-lane gathers.
 
-The alias tables are built on the host, in numpy and Python, by the
-algorithm of the JAX package's native builder (`alias_tables`): a Vose
+The alias tables are built on the host by the native library's builder
+(`native/alias_builder.cpp`) when it builds, else in Python by the same
+algorithm, step for step (`alias_tables`): a Vose
 table over each row rescaled by its own double sum, whose leftovers and
 zero rows alias to themselves. Both packages then freeze the same tables,
 bit for bit, and a draw lands on the same texel.
@@ -30,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from etx_tracer_tpu_torch import native
 from etx_tracer_tpu_torch.core import math as em
 
 # the largest uniform below 1 that a draw reads (float32 0.99999988)
@@ -131,6 +133,20 @@ def apply_rgb_image(scene, response: torch.Tensor, mat, column: str, uv: torch.T
   texel = evaluate(scene.images, torch.clamp(img_idx, min=0), uv)
   scaled = spx.apply_rgb(response, texel[:, :3], wl, spectral)
   return torch.where((img_idx >= 0)[..., None], scaled, response)
+
+
+def scalar_image(scene, img_idx: torch.Tensor, uv: torch.Tensor, channel, default):
+  """Channel `channel` ((R,) int or an int) of each lane's image `img_idx`
+  at uv, `default` where a lane has no image (img_idx < 0) and everywhere
+  when the bank is empty (the JAX package's single-channel lookup; the
+  shading code takes `apply_scalar_image`, gated on host facts)."""
+  if bank_is_empty(scene.images):
+    return default if isinstance(default, torch.Tensor) else torch.full(
+        img_idx.shape, float(default), device=img_idx.device)
+  texel = evaluate(scene.images, torch.clamp(img_idx, min=0), uv)
+  ch = torch.clamp(torch.as_tensor(channel, device=img_idx.device), 0, 3).to(torch.int64)
+  v = torch.gather(texel, 1, ch.expand(img_idx.shape)[:, None])[:, 0]
+  return torch.where(img_idx >= 0, v, default)
 
 
 def apply_scalar_image(scene, value: torch.Tensor, mat, column: str, uv: torch.Tensor,
@@ -292,8 +308,14 @@ def build_bank(images: list) -> dict:
       row_batch.append(rp_pad)
 
   if cdf_ids:
-    built_c = alias_tables(np.asarray(col_batch, np.float32))
-    built_r = alias_tables(np.concatenate(row_batch, axis=0).astype(np.float32))
+    cols = np.asarray(col_batch, np.float32)
+    rows = np.concatenate(row_batch, axis=0).astype(np.float32)
+    # the native builder when its library builds (milliseconds, where the
+    # Python loop takes seconds on a large map); the same tables
+    built_c = native.build_alias_tables(cols)
+    built_r = native.build_alias_tables(rows)
+    if built_c is None or built_r is None:
+      built_c, built_r = alias_tables(cols), alias_tables(rows)
     for k, i in enumerate(cdf_ids):
       col_ap[i], col_ai[i] = built_c[0][k], built_c[1][k]
       row_ap[i] = built_r[0][k * h_max:(k + 1) * h_max]

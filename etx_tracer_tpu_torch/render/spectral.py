@@ -55,6 +55,11 @@ def maximum(v: torch.Tensor) -> torch.Tensor:
   return torch.amax(v, dim=-1)
 
 
+def is_zero(v: torch.Tensor) -> torch.Tensor:
+  """Whether every channel of each response is at most kEpsilon."""
+  return torch.amax(v, dim=-1) <= em.kEpsilon
+
+
 def monochromatic(v: torch.Tensor, spectral: bool = False) -> torch.Tensor:
   """The scalar used for lobe selection: the value itself in spectral mode,
   the luminance in RGB mode."""

@@ -14,10 +14,10 @@ not. Staging and commit-time work (vertex normals, tangent frames, distant
 and per-triangle area-emitter instancing, the power-based emitter
 distribution, the camera, the spectrum bank, the image bank's alias
 tables, the medium table) run in numpy exactly as in the JAX package, so
-both packages freeze bit-identical tables, and the numpy BVH builder
-(`ops/bvh_build.py`, the JAX package's numpy builder) builds every scene's
-tree, as the JAX builder does. `build(device)` adds the BVH kernels'
-tables and moves them onto the device.
+both packages freeze bit-identical tables, and `ops/bvh_build.py` builds
+every scene's tree, natively when its library builds, as the JAX builder
+does (`bvh_builder` records which builder it took). `build(device)` adds
+the BVH kernels' tables and moves them onto the device.
 """
 
 from __future__ import annotations
@@ -137,6 +137,9 @@ class SceneBuilder:
     self.radiance_clamp = 0.0
     self.noise_threshold = 0.1
     self.spectral = False
+    # which BVH builder staged the scene ("native" or "numpy"), once it is
+    # staged (`ops/bvh_build.build_tree`)
+    self.bvh_builder: Optional[str] = None
 
     # spectrum 0 = black, 1 = white; default IORs vacuum 1.0, dielectric 1.5
     self.add_spectrum(sp.SpectralDistribution.null())
@@ -392,7 +395,7 @@ class SceneBuilder:
         **_build_mediums(self.mediums, self.spectra),
         **{f"images.{k}": v for k, v in images_mod.build_bank(self.images).items()},
     }
-    tree = bvh_build.build_bvh(v0, e1, e2)
+    tree, self.bvh_builder = bvh_build.build_tree(v0, e1, e2)
     arrays.update({f"bvh.{k}": v for k, v in tree.items() if v is not None})
     arrays.update(_build_camera(self.camera_origin, self.camera_target, self.camera_up,
                                 self.camera_fov, self.film_size, self.lens_radius,

@@ -8,9 +8,8 @@ identical tables: the Cornell box with its smooth conductor tall box
 Dielectric of constant IOR 1.52; 1,060 triangles in all. Spectral by
 default, maximum path length 16.
 
-The JAX package renders it with VCM, a later slice of the port; its
-micro-benchmark (`benchmarks/micro.py trace_brute`) traces it, and so does
-the port's.
+Both packages render it with VCM (bench config 5); their
+micro-benchmarks (`benchmarks/micro.py trace_brute`) trace it.
 """
 
 from __future__ import annotations

@@ -8,8 +8,12 @@ from MTL including the extension directives — `et::camera`, `et::env`,
 materials, plus per-material `material class X`, Kd/Ks/Kt (sRGB->linear),
 Pr roughness (squared), metalness/transmission, int/ext_ior (value, SPD
 name or SPD file), int/ext_medium, thinfilm, subsurface, emitter and
-opacity params, textures and normal maps. The port parses OBJ records in
-Python, as the JAX package does when its native parser does not load.
+opacity params, textures and normal maps. OBJ records go through the
+native parser (`native/obj_parser.cpp`) when its library builds, else
+through the Python parse, as in the JAX package; the two freeze the same
+tables but where a file that names materials has faces before its first
+`usemtl`: the native parse drops them, the Python one gives them a
+"default" material.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import struct
 
 import numpy as np
 
+from etx_tracer_tpu_torch import native
 from etx_tracer_tpu_torch.core import spectrum as sp
 from etx_tracer_tpu_torch.scene import types as st
 from etx_tracer_tpu_torch.scene.builder import EmitterProfileDesc, MaterialDesc, MediumDesc, SceneBuilder
@@ -432,6 +437,11 @@ class ObjSceneLoader:
   def load(self, obj_path: str, mtl_override: str | None = None) -> SceneBuilder:
     base_dir = os.path.dirname(os.path.abspath(obj_path))
 
+    # the native parser reads the geometry records when its library builds
+    parsed = native.parse_obj_native(os.path.abspath(obj_path))
+    if parsed is not None:
+      return self._load_parsed(parsed, base_dir, mtl_override)
+
     positions, normals, uvs = [], [], []
     # per-material triangle soup
     mtl_file = mtl_override
@@ -499,6 +509,45 @@ class ObjSceneLoader:
           uvs=np.asarray(vuv, np.float32))
     return self.b
 
+  def _load_parsed(self, parsed: dict, base_dir: str, mtl_override: str | None) -> SceneBuilder:
+    """Meshes from the native parser's arrays: one a material slot, in order
+    of first `usemtl` (a file that names no material: one "default" mesh;
+    faces before the first `usemtl` of a file that names some are
+    dropped, as in the JAX package's native path)."""
+    mtl_file = mtl_override
+    if mtl_file is None and parsed["mtllib"]:
+      mtl_file = os.path.join(base_dir, parsed["mtllib"])
+    if mtl_file and os.path.isfile(mtl_file):
+      self.load_materials(mtl_file, base_dir)
+
+    positions, normals, uvs = parsed["positions"], parsed["normals"], parsed["uvs"]
+    pos_idx, nrm_idx, uv_idx = parsed["pos_idx"], parsed["nrm_idx"], parsed["uv_idx"]
+    tri_mtl = parsed["tri_mtl"]
+    names = parsed["mtl_names"]
+    for slot in range(max(len(names), 1)):
+      if names:
+        name = names[slot]
+        sel = tri_mtl == slot
+      else:
+        name = "default"
+        sel = np.ones(len(tri_mtl), bool)
+      if not sel.any():
+        continue
+      mat_idx = self.b.material_names.get(name)
+      if mat_idx is None:
+        mat_idx = self.b.add_material(MaterialDesc(name=name, scattering_spec=1))
+      pi, ni, ti = pos_idx[sel], nrm_idx[sel], uv_idx[sel]
+      corners = pi.reshape(-1)
+      has_normals = (ni >= 0).all() and normals.shape[0] > 0
+      vnrm = (normals[np.clip(ni.reshape(-1), 0, max(normals.shape[0] - 1, 0))]
+              if has_normals else None)
+      vuv = (np.where((ti.reshape(-1) >= 0)[:, None],
+                      uvs[np.clip(ti.reshape(-1), 0, max(uvs.shape[0] - 1, 0))], 0.0)
+             if uvs.shape[0] > 0 else None)
+      idx = np.arange(len(corners), dtype=np.int32).reshape(-1, 3)
+      self.b.add_mesh(positions[corners], idx, mat_idx, normals=vnrm, uvs=vuv)
+    return self.b
+
   def load_materials(self, mtl_path: str, base_dir: str | None = None):
     base_dir = base_dir or os.path.dirname(os.path.abspath(mtl_path))
     for name, params in _parse_mtl(mtl_path):
@@ -535,18 +584,18 @@ class ObjSceneLoader:
 
 
 def load_density_grid(path: str):
-  """A (gz, gy, gx) density array from a Mitsuba `.vol` dense grid (float32
+  """A (gz, gy, gx) density array from a NanoVDB float grid (`.nvdb`,
+  `.nvdb.gz`; `scene/nvdb.py`), a Mitsuba `.vol` dense grid (float32
   voxels, z-y-x order, the first channel) or a `.npy` array; None when the
-  file is missing or not a float32 `.vol`. Grids are normalised to a
-  maximum of 1 when a scene is built, not here. NanoVDB (`.nvdb`) grids
-  raise NotImplementedError."""
-  if path.endswith(".nvdb") or path.endswith(".nvdb.gz"):
-    raise NotImplementedError(
-        f"{path}: NanoVDB grids are not ported yet (ROADMAP Queue 1 item 12)")
+  file is missing, not a float32 `.vol`, or a grid the reference clears.
+  Grids are normalised to a maximum of 1 when a scene is built, not here."""
   if not os.path.isfile(path):
     return None
   if path.endswith(".npy"):
     return np.load(path)
+  if path.endswith(".nvdb") or path.endswith(".nvdb.gz"):
+    from etx_tracer_tpu_torch.scene import nvdb
+    return nvdb.read_nvdb_density(path)
   if path.endswith(".vol"):
     with open(path, "rb") as f:
       data = f.read()

@@ -98,6 +98,13 @@ class MaterialRows:
     return MaterialRows(rows)
 
 
+def unpack_material_rows(rows: torch.Tensor) -> MaterialRows:
+  """Per-lane material rows (R, 32) as their named columns (the JAX
+  package's `unpack_material_rows` gives a NamedTuple of arrays; here the
+  columns are views read by name from `MaterialRows`)."""
+  return MaterialRows(rows)
+
+
 def build_tri_table(pos, nrm, tan, btn, uv, idx, geo_n, mat, emitter, area) -> np.ndarray:
   """Per-triangle shading record:
   [geo_n(3), mat, emitter, area, n0 n1 n2 (9), t0 t1 t2 (9), b0 b1 b2 (9),

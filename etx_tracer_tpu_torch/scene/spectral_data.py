@@ -14,6 +14,8 @@ CIE D65 table (`d65`), the CIE D-series daylight eigenvector model
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from etx_tracer_tpu_torch.core import spectrum as sp
@@ -265,3 +267,31 @@ def led(cct_kelvin: float, high_cri: bool = False) -> sp.SpectralDistribution:
   wl, v = led_spd_values(cct_kelvin, high_cri)
   return sp.SpectralDistribution.from_samples(
       wl, v, sp.SpectralDistribution.CLASS_ILLUMINANT)
+
+
+def write_spd_library(folder: str):
+  """Write the derived conductor and illuminant library as `.spd` files
+  that `scene/ior.py`'s scanner reads (the reference's on-disk format: a
+  `#class:` header, then `wavelength eta k` rows): `conductor/<metal>.spd`
+  for every Lorentz-Drude metal and `emission/d65.spd`. Returns the paths."""
+  cdir = os.path.join(folder, "conductor")
+  edir = os.path.join(folder, "emission")
+  os.makedirs(cdir, exist_ok=True)
+  os.makedirs(edir, exist_ok=True)
+  written = []
+  for metal in LD_METALS:
+    wl, n, k = lorentz_drude_nk(metal, np.arange(360.0, 831.0, 5.0))
+    path = os.path.join(cdir, f"{metal}.spd")
+    with open(path, "w") as f:
+      f.write(f"#class: conductor\n#title: {metal} (Lorentz-Drude, "
+              "Rakic et al. 1998)\n")
+      for i in range(wl.shape[0]):
+        f.write(f"{wl[i]:.1f} {n[i]:.6f} {k[i]:.6f}\n")
+    written.append(path)
+  path = os.path.join(edir, "d65.spd")
+  with open(path, "w") as f:
+    f.write("#class: illuminant\n#title: CIE standard illuminant D65\n")
+    for i in range(_D65_WL.shape[0]):
+      f.write(f"{_D65_WL[i]:.1f} {_D65_V[i]:.2f}\n")
+  written.append(path)
+  return written

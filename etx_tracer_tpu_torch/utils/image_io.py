@@ -2,9 +2,9 @@
 Radiance HDR, in numpy.
 
 Counterpart of `etx_tracer_tpu/utils/image_io.py`, which writes the same
-bytes for the same array. PIZ goes through the JAX package's native helper,
-which this package does not have: as the JAX package does when that helper
-is missing, a PIZ write writes ZIP and a PIZ read raises.
+bytes for the same array. PIZ goes through the native library
+(`native/exr_decoder.cpp`); where it cannot be built, a PIZ write writes
+ZIP and a PIZ read raises, as in the JAX package without its helper.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from etx_tracer_tpu_torch import native
 
 
 def _flip(img: np.ndarray) -> np.ndarray:
@@ -72,20 +74,21 @@ def save_exr(path: str, image: np.ndarray, flip: bool = True,
              compression: str = "none", half: bool = False):
   """Write (H,W,3) float as a scanline EXR (B,G,R channels).
 
-  compression: none|rle|zips|zip|piz (PIZ writes ZIP: this package has no
-  PIZ encoder). half: write HALF instead of FLOAT pixels."""
+  compression: none|rle|zips|zip|piz (PIZ needs the native library; without
+  it a PIZ write writes ZIP). half: write HALF instead of FLOAT pixels."""
   img = np.asarray(image, np.float32)
   if flip:
     img = _flip(img)
   h, w, _ = img.shape
   comp = _EXR_COMP_IDS[compression]
-  if comp == 4:
-    comp = 3  # no PIZ encoder: ZIP, as without the native helper
+  if comp == 4 and native.load() is None:
+    comp = 3  # no PIZ encoder: ZIP
 
   def attr(name, typ, data):
     return name.encode() + b"\x00" + typ.encode() + b"\x00" + struct.pack("<i", len(data)) + data
 
   ptype = _EXR_HALF if half else _EXR_FLOAT
+  nb = 2 if half else 4
   channels = b""
   for ch in (b"B", b"G", b"R"):
     # name \0, pixelType i32, pLinear u8 + 3 reserved, xSampling, ySampling
@@ -124,9 +127,11 @@ def save_exr(path: str, image: np.ndarray, flip: bool = True,
       payload = _exr_rle_encode(
           np.frombuffer(_exr_predictor_interleave(
               np.frombuffer(raw, np.uint8)).tobytes(), np.uint8))
-    else:  # zips / zip
+    elif comp in (2, 3):
       payload = zlib.compress(_exr_predictor_interleave(
           np.frombuffer(raw, np.uint8)).tobytes(), 6)
+    else:  # piz; None where the block does not compress: stored raw
+      payload = native.piz_encode(raw, np.asarray([nb // 2] * 3, np.int32), w, lines) or raw
     if len(payload) >= len(raw):
       payload = raw
     chunks.append((y0c, payload))
@@ -229,7 +234,8 @@ def _exr_rle_decode(src: bytes, out_size: int) -> np.ndarray:
 def load_exr_channels(path: str) -> dict:
   """General single-part scanline EXR decode (tinyexr parity:
   reference render/host/image_pool.cxx:113): HALF/FLOAT/UINT channels;
-  NONE/RLE/ZIPS/ZIP compression in numpy; PIZ raises.
+  NONE/RLE/ZIPS/ZIP compression in numpy, PIZ through the native library
+  (raises without it).
 
   Returns {"channels": {name: (H,W) float32 (or uint32 for UINT)},
            "size": (W, H)} with rows top-down as stored."""
@@ -278,7 +284,11 @@ def load_exr_channels(path: str) -> dict:
       if raw.size != raw_size:
         raise ValueError("corrupt ZIP block size")
     else:  # PIZ
-      raise ValueError("PIZ EXR requires the native helper (g++)")
+      out = native.piz_decode(payload, np.asarray([b // 2 for b in ch_bytes], np.int32), w,
+                              lines)
+      if out is None:
+        raise ValueError("PIZ EXR requires the native library (g++)")
+      raw = np.frombuffer(out, np.uint8)
 
     off = 0
     for li in range(lines):

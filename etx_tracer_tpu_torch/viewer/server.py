@@ -468,14 +468,17 @@ class ViewerState:
     while self.running:
       with self.lock:
         dirty, integrator = self.dirty, self.integrator
+        self.dirty = False
+        if dirty:
+          # restart before the preview test: a change that came during a
+          # longer iteration than the hold still gets its preview
+          iters_done = 0
         preview = self.preview and (time.time() - self.last_move < _PREVIEW_HOLD
                                     or iters_done == 0)
-        self.dirty = False
       if dirty:
         scene, config = self._build()
         sums = None
         vcm_fs = None
-        iters_done = 0
       t0 = time.perf_counter()
       if preview:
         img = path_tracing.render_preview(scene, config, pixel_size=self.preview_pixel_size,

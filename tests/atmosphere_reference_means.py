@@ -22,6 +22,7 @@ import torch
 import tests.conftest  # noqa: F401  (JAX on the CPU)
 from benchmarks import scenes as jscenes
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.models import path_tracing as jpt
 from etx_tracer_tpu.render import film as jfilm
 from etx_tracer_tpu_torch.core import spectrum
@@ -43,6 +44,7 @@ def main():
   which = sys.argv[2] if len(sys.argv) > 2 else "both"
   torch.set_num_threads(4)
   jnative.build_bvh_native = lambda *a, **k: None
+  pnative.build_bvh_native = lambda *a, **k: None
   for side in sides:
     size = (side, side)
     if which in ("port", "both"):

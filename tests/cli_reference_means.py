@@ -55,9 +55,12 @@ def main():
     import tests.conftest  # noqa: F401  (JAX on the CPU)
     from etx_tracer_tpu import cli as jcli
     from etx_tracer_tpu import native as jnative
+    from etx_tracer_tpu_torch import native as pnative
     from etx_tracer_tpu.utils import image_io as jio
     jnative.parse_obj_native = lambda *a, **k: None
+    pnative.parse_obj_native = lambda *a, **k: None
     jnative.build_bvh_native = lambda *a, **k: None
+    pnative.build_bvh_native = lambda *a, **k: None
     means(jcli, jio, scene_file, size, [])
 
 

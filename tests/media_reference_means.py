@@ -21,6 +21,7 @@ import torch
 import tests.conftest  # noqa: F401  (JAX on the CPU)
 from benchmarks import scenes as jscenes
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.models import path_tracing as jpt
 from etx_tracer_tpu.render import film as jfilm
 from etx_tracer_tpu_torch.models import path_tracing as ppt
@@ -34,6 +35,7 @@ SIZE = (64, 64)
 def main():
   torch.set_num_threads(4)
   jnative.build_bvh_native = lambda *a, **k: None
+  pnative.build_bvh_native = lambda *a, **k: None
   cases = (("volumetric", jscenes.volumetric(SIZE), pvol.volumetric(SIZE), 8),
            ("subsurface", _jax_subsurface(SIZE, RW), pvol.subsurface_cornell(SIZE, RW), 4))
   for name, jb, pb, spp in cases:

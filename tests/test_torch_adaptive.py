@@ -23,6 +23,7 @@ import torch
 
 from etx_tracer_tpu import cli as jcli
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.models import path_tracing as jpt
 from etx_tracer_tpu.render import film as jfilm
 from etx_tracer_tpu.scene import json_scene as jjson
@@ -34,6 +35,7 @@ from etx_tracer_tpu_torch.render import film as pfilm
 from etx_tracer_tpu_torch.scene import assets as passets
 from etx_tracer_tpu_torch.scene import json_scene as pjson
 from etx_tracer_tpu_torch.utils import image_io as pio
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -59,6 +61,7 @@ def scenes(scene_file):
   """((JAX scene, config), (port scene, config)) from the scene files."""
   with pytest.MonkeyPatch.context() as mp:
     mp.setattr(jnative, "parse_obj_native", lambda *a, **k: None)
+    mp.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
     mp.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
     jax = _sized(jjson.load_scene(scene_file)).build()
   return jax, _sized(pjson.load_scene(scene_file)).build(device="cpu")
@@ -199,6 +202,7 @@ def test_render_adaptive_matches_jax(scenes, monkeypatch):
 def test_cli_adaptive_matches_jax_cli(scene_file, tmp_path, monkeypatch):
   monkeypatch.setenv("ETX_TPU_CONFIG_DIR", str(tmp_path / "cfg"))
   monkeypatch.setattr(jnative, "parse_obj_native", lambda *a, **k: None)
+  monkeypatch.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
   monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
   args = ["render", scene_file, "--size", "x".join(map(str, FILM)), "--max-path", str(MPL),
           "--spp", str(SPP), "--adaptive"]

@@ -58,6 +58,7 @@ from etx_tracer_tpu_torch.scene import bigscene, materials
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests.test_torch_render import assert_bvh_holds_tree
 from tests.test_torch_trace import T_ATOL, T_RTOL, UV_ATOL, _all_hits_at, _rays, _tris
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -20,10 +20,12 @@ import torch
 
 from etx_tracer_tpu import cli as jcli
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.utils import image_io as jio
 from etx_tracer_tpu_torch import cli as pcli
 from etx_tracer_tpu_torch.scene import assets as passets
 from etx_tracer_tpu_torch.utils import image_io as pio
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -44,6 +46,7 @@ def isolated(tmp_path, monkeypatch):
   in Python and builds the numpy BVH, as the port does."""
   monkeypatch.setenv("ETX_TPU_CONFIG_DIR", str(tmp_path / "cfg"))
   monkeypatch.setattr(jnative, "parse_obj_native", lambda *a, **k: None)
+  monkeypatch.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
   monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
 
 

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.core import spectrum as jspectrum
 from etx_tracer_tpu.models import debug as jdebug
 from etx_tracer_tpu.render import denoiser as jden
@@ -50,6 +51,7 @@ from etx_tracer_tpu_torch.scene import spectral_data as psdata
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests import shading_showcase
 from tests.test_torch_images import load_native
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -72,6 +74,7 @@ def cornell_files(tmp_path_factory):
   out = []
   with pytest.MonkeyPatch.context() as mp:
     mp.setattr(jnative, "parse_obj_native", lambda *a, **k: None)
+    mp.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
     mp.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
     for load in (jjson.load_scene, pjson.load_scene):
       b = load(path)

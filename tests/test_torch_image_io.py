@@ -5,10 +5,10 @@ package's: for the same array both write the same bytes (EXR with none,
 rle, zips and zip compression, FLOAT and HALF pixels; PNG with and without
 the flip and the tone map), and both decode the same files to the same
 arrays (EXR, PNG, Radiance HDR flat and run-length encoded). PIZ goes
-through the JAX package's native helper, which the port does not have: a
-port PIZ write gives the bytes of a JAX PIZ write without the helper (ZIP),
-and a port PIZ read raises the JAX package's error. The preferences file is
-shared: what one package records, the other reads.
+through each package's native library (`tests/test_torch_native.py` holds
+the two against each other); without it a PIZ write gives the bytes of the
+other package's PIZ write without its helper (ZIP), and a PIZ read raises.
+The preferences file is shared: what one package records, the other reads.
 """
 
 import json
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.utils import image_io as jio
 from etx_tracer_tpu.utils import prefs as jprefs
 from etx_tracer_tpu_torch.utils import image_io as pio
@@ -61,8 +62,10 @@ def test_exr_bytes_and_arrays_equal_jax(tmp_path, compression, half, flip):
 
 
 def test_piz_writes_what_jax_writes_without_its_helper(tmp_path, monkeypatch):
+  """Without the native library both packages write ZIP for PIZ."""
   img = _image(40, 9)
   p, j = str(tmp_path / "port.exr"), str(tmp_path / "jax.exr")
+  monkeypatch.setattr(pnative, "load", lambda: None)
   pio.save_exr(p, img, compression="piz")
   monkeypatch.setattr(jnative, "load", lambda: None)
   jio.save_exr(j, img, compression="piz")
@@ -70,7 +73,9 @@ def test_piz_writes_what_jax_writes_without_its_helper(tmp_path, monkeypatch):
   assert np.array_equal(pio.load_exr(p), img[::-1])
 
 
-def test_piz_read_raises_as_jax_does_without_its_helper(tmp_path):
+def test_piz_read_raises_as_jax_does_without_its_helper(tmp_path, monkeypatch):
+  """A PIZ file that the JAX package wrote reads back through its helper;
+  without the native library the port's reader raises."""
   load_native()
   path = str(tmp_path / "piz.exr")
   flat = np.full((40, 9, 3), 0.5, np.float32)  # compresses: PIZ blocks are kept
@@ -79,7 +84,8 @@ def test_piz_read_raises_as_jax_does_without_its_helper(tmp_path):
   raw = _bytes(path)
   tag = b"compression\x00compression\x00"
   assert raw[raw.index(tag) + len(tag) + 4] == 4  # a PIZ file
-  with pytest.raises(ValueError, match="PIZ EXR requires the native helper"):
+  monkeypatch.setattr(pnative, "load", lambda: None)
+  with pytest.raises(ValueError, match="PIZ EXR requires the native library"):
     pio.load_exr(path)
 
 

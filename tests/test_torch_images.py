@@ -50,6 +50,7 @@ from etx_tracer_tpu_torch.scene import builder as pbuilder
 from etx_tracer_tpu_torch.scene import cornell as pcornell
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests.test_torch_render import _jax_arrays
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

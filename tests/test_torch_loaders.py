@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.scene import assets as jassets
 from etx_tracer_tpu.scene import gltf_loader as jgltf
 from etx_tracer_tpu.scene import json_scene as jjson
@@ -38,9 +39,11 @@ from etx_tracer_tpu_torch.scene import gltf_loader as pgltf
 from etx_tracer_tpu_torch.scene import json_scene as pjson
 from etx_tracer_tpu_torch.scene import obj_loader as pobj
 from etx_tracer_tpu_torch.scene import types as ptypes
+from tests import nvdb_writer
 from tests.test_gltf import _make_glb
 from tests.test_torch_images import load_native
 from tests.test_torch_render import _jax_arrays
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 # builder settings a scene file sets, compared before the build
 BUILDER_FIELDS = ("film_size", "samples", "max_path_length", "min_path_length", "rr_start",
@@ -55,6 +58,7 @@ def python_parse_numpy_tree(monkeypatch):
   """The JAX side parses OBJ records in Python and builds the numpy BVH."""
   load_native()
   monkeypatch.setattr(jnative, "parse_obj_native", lambda *a, **k: None)
+  monkeypatch.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
   monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
 
 
@@ -290,9 +294,9 @@ def _jax_obj_tables(path, native: bool, monkeypatch):
 def test_native_obj_parse_drops_faces_before_the_first_usemtl(tmp_path, monkeypatch):
   """The JAX package's two OBJ parse paths freeze the same tables on the
   Cornell files and on the directives scene without its first face. That
-  face comes before any `usemtl`: the Python parse (and the port) give it
-  a "default" material, the native parse drops it (ROADMAP Queue 3, watch
-  list)."""
+  face comes before any `usemtl`: the Python parse gives it a "default"
+  material, the native parse drops it (ROADMAP Queue 3, watch list); the
+  port's two parse paths do the same."""
   monkeypatch.undo()
   load_native()
   monkeypatch.setattr(jnative, "build_bvh_native", lambda *a, **k: None)
@@ -312,7 +316,10 @@ def test_native_obj_parse_drops_faces_before_the_first_usemtl(tmp_path, monkeypa
     if path == full:
       assert "default" in pb.material_names and "default" not in nb.material_names
       assert python["tri_v0"].shape[0] == native["tri_v0"].shape[0] + 1
-      assert pobj.ObjSceneLoader().load(path).material_names == pb.material_names
+      assert pobj.ObjSceneLoader().load(path).material_names == nb.material_names
+      with monkeypatch.context() as mp:
+        mp.setattr(pnative, "parse_obj_native", lambda *a, **k: None)
+        assert pobj.ObjSceneLoader().load(path).material_names == pb.material_names
       continue
     for name in python:
       np.testing.assert_array_equal(native[name], python[name], err_msg=f"{path}: {name}")
@@ -422,5 +429,7 @@ def test_density_grids_and_nvdb(tmp_path):
   np.testing.assert_array_equal(pobj.load_density_grid(str(vol)), grid)
   np.testing.assert_array_equal(pobj.load_density_grid(str(vol)),
                                 jobj._load_density_grid(str(vol)))
-  with pytest.raises(NotImplementedError, match="item 12"):
-    pobj.load_density_grid(str(tmp_path / "cloud.nvdb"))
+  assert pobj.load_density_grid(str(tmp_path / "missing.nvdb")) is None
+  cloud = nvdb_writer.write_dense(str(tmp_path / "cloud.nvdb"), np.pad(grid, 1), codec=2)
+  np.testing.assert_array_equal(pobj.load_density_grid(cloud), jobj._load_density_grid(cloud))
+  np.testing.assert_array_equal(pobj.load_density_grid(cloud), np.pad(grid, 1))

@@ -54,6 +54,7 @@ from etx_tracer_tpu_torch.scene import ior as pior
 from etx_tracer_tpu_torch.scene import materials as pmaterials
 from etx_tracer_tpu_torch.scene import packed as ppacked
 from etx_tracer_tpu_torch.scene import types as ptypes
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -57,6 +57,7 @@ from etx_tracer_tpu_torch.scene import obj_loader as ploader
 from etx_tracer_tpu_torch.scene import types as ptypes
 from etx_tracer_tpu_torch.scene import volumetric as pvol
 from tests.test_torch_render import _jax_arrays
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -132,7 +133,8 @@ def scenes(cache_home):
 
 def test_density_loader_matches_jax(cache_home, tmp_path):
   """The `.vol` file the volumetric scene writes loads back equal through
-  both loaders; so does an `.npy` grid; NanoVDB is a later slice."""
+  both loaders; so does an `.npy` grid; a missing NanoVDB file gives None
+  (`tests/test_torch_native.py` reads NanoVDB grids)."""
   path = pvol._cloud_vol_path()
   assert path.startswith(str(cache_home))
   got = ploader.load_density_grid(path)
@@ -145,8 +147,8 @@ def test_density_loader_matches_jax(cache_home, tmp_path):
   np.testing.assert_array_equal(ploader.load_density_grid(str(npy)),
                                 jloader._load_density_grid(str(npy)))
   assert ploader.load_density_grid(str(tmp_path / "missing.vol")) is None
-  with pytest.raises(NotImplementedError, match="NanoVDB"):
-    ploader.load_density_grid(str(tmp_path / "cloud.nvdb"))
+  assert ploader.load_density_grid(str(tmp_path / "cloud.nvdb")) is None
+  assert jloader._load_density_grid(str(tmp_path / "cloud.nvdb")) is None
 
 
 @pytest.mark.parametrize("name", ["volumetric", "fog", "fog_boundary"])

@@ -35,6 +35,7 @@ from etx_tracer_tpu_torch.scene import caustics
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests.test_torch_trace import T_ATOL, T_RTOL, _interpret_brute2, _tris
 from tests.test_torch_woop import _interpret_woop, _ties_and_grazing
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -171,10 +172,16 @@ def test_oracle_position_keys_equal_jax():
   np.testing.assert_array_equal(keys["pos"].numpy(), np.asarray(want).astype(np.int64))
 
 
-@pytest.mark.parametrize("group", list(micro.LATER))
+@pytest.mark.parametrize("group", ["sort", "mxu", "dispatch", "step"])
 def test_micro_later_groups_raise(group):
-  with pytest.raises(NotImplementedError, match="later slice"):
-    micro.main([group, "--device", "cpu"])
+  """The groups that were a later slice (and raised) now run: on the CPU at
+  64 rows or lanes, every line a positive time."""
+  lines = micro.main([group, "--device", "cpu", "--rays", "64"])
+  assert lines and all(x.group == group and x.seconds > 0.0 for x in lines)
+  labels = {x.label for x in lines}
+  want = {"sort": "cumsum n=64", "mxu": "matmul (64,16)@(16,64)",
+          "dispatch": "sample all-classes", "step": "pt_step full"}[group]
+  assert want in labels, labels
 
 
 def test_micro_entry_needs_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -25,6 +25,7 @@ from etx_tracer_tpu_torch.parallel import mesh as pmesh
 from etx_tracer_tpu_torch.scene import cornell as pcornell
 from tests.test_torch_parallel import FILM, MPL, POOL, PT_ATOL, PT_RTOL, SPP, VCM_ATOL, \
     VCM_RTOL, _cornell, _gloo
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -46,6 +46,7 @@ from etx_tracer_tpu_torch.scene import cornell as pcornell
 from etx_tracer_tpu_torch.scene import packed as ppacked
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests.test_golden import GOLDEN_MEAN, GOLDEN_PROBES, GOLDEN_TOTAL
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -518,6 +519,22 @@ assert mesh.dryrun(2)[0] == (7, 16, 3)
 scene, config = cornell.build_cornell_box(film_size=(8, 8), max_path_length=3).build(device="cpu")
 preview = path_tracing.render_preview(scene, config, pixel_size=4, device="cpu")
 assert preview.shape == (8, 8, 3) and bool(torch.isfinite(preview).all())
+from etx_tracer_tpu_torch import native
+from etx_tracer_tpu_torch.benchmarks import denoise_eval
+from etx_tracer_tpu_torch.render.bsdf import lobes
+from etx_tracer_tpu_torch.scene import materials, nvdb, save_mtl
+from tests import nvdb_writer
+assert native.load() is not None, native.failure()
+grid_file = nvdb_writer.write_dense(os.path.join(work, "c.nvdb"), volumetric._expected_grid())
+assert nvdb.read_nvdb_density(grid_file).shape == (24, 24, 24)
+save_mtl.save_materials(os.path.join(work, "c.mtl"), cornell.build_cornell_box(film_size=(8, 8)))
+lobes.MS_BACKEND = "walk"
+scene, config = materials.build_materials_scene((8, 8)).build(device="cpu")
+img = film.result_image(path_tracing.render(scene, config, iterations=1, device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+lobes.MS_BACKEND = "lut"
+assert [x.label for x in micro.run("sort", "cpu", 16)][0] == "sort_key_val n=16"
+assert denoise_eval.run("cpu", size=8, gt_spp=2, spps=(1,), levels=(1,))[0]["spp"] == 1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "etx_tracer_tpu")]
 assert not bad, bad
 print("GUARD-OK")

@@ -29,6 +29,7 @@ from etx_tracer_tpu_torch.scene import spectral_data as psdata
 from etx_tracer_tpu_torch.scene import types as ptypes
 from tests import shading_showcase
 from tests.test_torch_showcase_a import FILM, _check_render, _check_tables, _renders, _stage
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from etx_tracer_tpu_torch.models import vcm as pvcm
 from etx_tracer_tpu_torch.render import film as pfilm
 from tests.test_torch_showcase_a import FILM, FIRST, SPP
 from tests.test_torch_showcase_b import check_walk_render, subset_b  # noqa: F401
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -71,6 +71,7 @@ from etx_tracer_tpu_torch.render.bsdf import lobes as plobes
 from etx_tracer_tpu_torch.scene import packed as ppacked
 from etx_tracer_tpu_torch.scene import types as ptypes
 from etx_tracer_tpu_torch.scene import volumetric as pvol
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

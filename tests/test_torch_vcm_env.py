@@ -21,6 +21,7 @@ from etx_tracer_tpu_torch.models import vcm as pvcm
 from etx_tracer_tpu_torch.scene import atmosphere as patm
 from tests.test_torch_images import load_native, render_builders
 from tests.test_torch_vcm import FILM, SPP, UNCAPPED, _render_pair, check_render
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -43,6 +43,7 @@ from etx_tracer_tpu_torch.scene import packed as ppacked
 from etx_tracer_tpu_torch.scene.types import MaterialClass as MC
 from tests.test_torch_vcm import (FILM, PASS_ATOL, PASS_RTOL, SPP, UNCAPPED, _render_pair, _t,
                                   check_render)
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

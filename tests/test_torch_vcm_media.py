@@ -30,6 +30,7 @@ from etx_tracer_tpu_torch.ops import brute_trace
 from etx_tracer_tpu_torch.scene import volumetric as pvol
 from tests.test_torch_subsurface import RW, RW_MEAN_RTOL, RW_OUTLIER_FRACTION, _jax_subsurface
 from tests.test_torch_vcm import FILM, RAYS_RTOL, SPP, UNCAPPED, _render_pair
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

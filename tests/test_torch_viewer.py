@@ -26,6 +26,7 @@ from etx_tracer_tpu_torch.render import film as pfilm
 from etx_tracer_tpu_torch.scene import cornell as pcornell
 from etx_tracer_tpu_torch.utils import image_io as pio
 from etx_tracer_tpu_torch.viewer import server as pserver
+from tests.torch_pins import port_numpy_tree  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -203,3 +204,44 @@ def test_render_loop_fills_image_and_film():
   assert isinstance(st.film.camera, np.ndarray) and st.film.camera.shape == (FILM[1], FILM[0], 3)
   assert np.isfinite(st.image).all() and st.image.mean() > 0
   np.testing.assert_array_equal(st.image, st.film.camera)
+
+
+def test_move_during_an_iteration_gets_a_preview(monkeypatch):
+  """A camera move that lands while an iteration runs, which then outlasts
+  the preview hold (a 512x512 iteration takes longer than the hold on the
+  card), is shown as a preview before accumulation restarts, as the JAX
+  render loop does."""
+  st = pserver.ViewerState(_builder(), device="cpu")
+  monkeypatch.setattr(pserver, "_PREVIEW_HOLD", 0.0)  # every iteration outlasts the hold
+  real, real_preview = ppt.render_samples_static, ppt.render_preview
+  moved, in_preview = threading.Event(), threading.Event()
+
+  def preview(*a, **k):  # renders its coarse film through render_samples_static
+    in_preview.set()
+    try:
+      return real_preview(*a, **k)
+    finally:
+      in_preview.clear()
+
+  def iteration_with_a_move(*a, **k):
+    if not moved.is_set() and not in_preview.is_set():
+      st.orbit(40.0, 0.0)
+      moved.set()
+    return real(*a, **k)
+
+  monkeypatch.setattr(ppt, "render_preview", preview)
+  monkeypatch.setattr(ppt, "render_samples_static", iteration_with_a_move)
+  thread = threading.Thread(target=st.render_loop, daemon=True)
+  thread.start()
+  deadline = time.monotonic() + 120
+  try:
+    while time.monotonic() < deadline and not (moved.is_set() and st.iteration >= 1):
+      assert st.error is None, st.error
+      time.sleep(0.02)
+  finally:
+    st.running = False
+    thread.join(timeout=120)
+  assert not thread.is_alive() and st.error is None
+  assert moved.is_set() and st.iteration >= 1
+  # the first preview, then the move's, before the restarted iteration
+  assert st.previews == 2, st.previews

@@ -24,6 +24,7 @@ import torch
 import tests.conftest  # noqa: F401  (JAX on the CPU)
 from benchmarks import scenes as jscenes
 from etx_tracer_tpu import native as jnative
+from etx_tracer_tpu_torch import native as pnative
 from etx_tracer_tpu.models import vcm as jvcm
 from etx_tracer_tpu.render import film as jfilm
 from etx_tracer_tpu_torch.models import vcm as pvcm
@@ -58,6 +59,7 @@ def main():
   size = (side, side)
   torch.set_num_threads(4)
   jnative.build_bvh_native = lambda *a, **k: None
+  pnative.build_bvh_native = lambda *a, **k: None
   cases = (("caustics vcm", jscenes.caustics(size), pcaustics.build_caustics_scene(size),
             "VCMOptions"),
            ("volumetric bdpt", jscenes.volumetric(size), pvol.volumetric(size), "bdpt_options"))

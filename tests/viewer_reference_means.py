@@ -36,9 +36,11 @@ def main():
   if which in ("jax", "both"):
     import tests.conftest  # noqa: F401  (JAX on the CPU)
     from etx_tracer_tpu import native as jnative
+    from etx_tracer_tpu_torch import native as pnative
     from etx_tracer_tpu.models import path_tracing as jpt
     from etx_tracer_tpu.scene import cornell as jcornell
     jnative.build_bvh_native = lambda *a, **k: None
+    pnative.build_bvh_native = lambda *a, **k: None
     t0 = time.perf_counter()
     scene, config = jcornell.build_cornell_box(film_size=(size, size), max_path_length=8).build()
     img = np.asarray(jpt.render(scene, config, iterations=spp).camera)
